@@ -1,0 +1,13 @@
+"""nanokappa_torch — the phonon Monte Carlo BTE solver on PyTorch and CUDA.
+
+The port of `nanokappa_tpu` to one NVIDIA H100. Host-side builders (material
+synthesis and loading, the mesh engine, the domain, boundary and reservoir
+tables) are NumPy and produce bit-identical arrays to the JAX package; the
+device side is plain torch around three hand-written CUDA kernels
+(`ops/megastep.py`, `ops/compact_pool.py`, `ops/compact.py`, sources in
+`csrc/`). On CPU tensors every kernel wrapper runs its plain torch twin.
+"""
+
+from nanokappa_torch import constants  # noqa: F401
+
+__version__ = "0.1.0"

@@ -1,0 +1,105 @@
+"""Conversion between the JAX package's data and the port's objects.
+
+The JAX package's dataclasses arrive as dicts of NumPy arrays keyed by their
+field names (`{f.name: np.asarray(getattr(obj, f.name))}`); this module
+imports neither jax nor the JAX package.
+
+  * `state_from_jax` / `state_to_jax`: SimState. The JAX package carries a
+    packed (N, 16) row matrix and an (N, 8) specular-mirror cache; the port
+    carries one (18, N) pool (the 16 columns as rows, then the mirror's
+    partner mode and lifetime slope). Back to JAX, the full mirror cache is
+    rebuilt from the slim rows (exact under the slim gate).
+  * `tables_from_jax`: MaterialTables, DeviceGeometry, BoundaryTables and
+    ReservoirTables, field for field.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from nanokappa_torch.sim.state import (
+    X_MODE, X_TAUB, SimState, make_generator,
+)
+
+
+def state_from_jax(d: dict, device="cpu", seed: int = 0) -> SimState:
+    """The port's SimState from a JAX SimState's arrays. The port's random
+    stream is a torch Generator seeded with `seed` (threefry keys do not
+    carry over)."""
+    packed = np.asarray(d["packed"], np.float32)
+    mirror = np.asarray(d["mirror"], np.float32)
+    pool = np.concatenate([packed.T, mirror[:, [X_MODE, X_TAUB]].T], axis=0)
+
+    def t(name, dtype):
+        return torch.as_tensor(np.array(d[name], dtype), device=device)
+
+    return SimState(
+        pool=torch.as_tensor(np.ascontiguousarray(pool), device=device),
+        T_sv=t("T_sv", np.float32),
+        Np_sv=t("Np_sv", np.int32),
+        T_tau=t("T_tau", np.float32),
+        tail=int(np.asarray(d["free_count"])[0]),
+        res_counter=np.array(d["res_counter"], np.float32),
+        n_leaving=t("n_leaving", np.int32),
+        res_energy_balance=t("res_energy_balance", np.float32),
+        res_heat_flux=t("res_heat_flux", np.float32),
+        lost=t("lost", np.int32),
+        frozen=t("frozen", np.int32),
+        gen=make_generator(seed, device),
+        step=int(np.asarray(d["step"])),
+    )
+
+
+def state_to_jax(state: SimState, flip_axis: int) -> dict:
+    """A JAX SimState's arrays (without its PRNG key) from the port's state;
+    `flip_axis` is the slim gate's wall axis (sim/boundary_tables.py
+    slim_mirror_axis)."""
+    from nanokappa_torch.sim.fused import expand_slim_mirror
+
+    pool = state.pool
+    n = pool.shape[1]
+
+    def a(t):
+        return t.detach().cpu().numpy()
+
+    return dict(
+        packed=np.ascontiguousarray(a(pool[:16]).T),
+        mirror=a(expand_slim_mirror(pool, flip_axis)),
+        sv_id=a(state.sv_col),
+        T_sv=a(state.T_sv),
+        Np_sv=a(state.Np_sv),
+        T_tau=a(state.T_tau),
+        free_list=np.zeros(n, np.int32),
+        free_count=np.array([state.tail], np.int32),
+        res_counter=state.res_counter.copy(),
+        n_leaving=a(state.n_leaving),
+        res_energy_balance=a(state.res_energy_balance),
+        res_heat_flux=a(state.res_heat_flux),
+        lost=a(state.lost),
+        frozen=a(state.frozen),
+        step=np.int32(state.step),
+    )
+
+
+_STATIC = {"int": int, "float": float, "str": str, "bool": bool}
+
+
+def tables_from_jax(cls, d: dict, device="cpu"):
+    """An instance of the port's table dataclass `cls` (MaterialTables,
+    DeviceGeometry, BoundaryTables, ReservoirTables) from the JAX object's
+    field arrays: torch fields become tensors on `device`, NumPy fields
+    stay NumPy, static fields become Python scalars."""
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = d[f.name]
+        kind = str(f.type)
+        if "Tensor" in kind:
+            kw[f.name] = torch.as_tensor(np.array(v), device=device)
+        elif "ndarray" in kind:
+            kw[f.name] = np.asarray(v)
+        else:
+            kw[f.name] = _STATIC[kind](np.asarray(v).item())
+    return cls(**kw)

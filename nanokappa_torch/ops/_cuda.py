@@ -1,0 +1,118 @@
+"""Build and load the hand-written CUDA kernels of `nanokappa_torch/csrc`.
+
+All `csrc/*.cu` files compile with `nvcc` into ONE shared library with a plain
+C interface, loaded with ctypes (no PyTorch headers, so the build takes
+seconds). The library is built at first use into `nanokappa_torch/build/`
+and rebuilt whenever the hash of the sources or flags changes.
+
+Flags: `sm_90a`, `-O3`, no fast math, no flush-to-zero (the pool's integer
+columns are float32 bit patterns that read as denormals), and `--fmad=false`
+so every product and sum rounds exactly as the plain torch twin's separate
+operations do — the kernels are held bit-for-bit against those twins.
+
+Every C entry takes the current CUDA stream and returns `cudaGetLastError()`;
+`check` raises on anything but 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD = os.path.join(_PKG, "build")
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points and their argument types (pointers and the stream are
+# c_void_p: a plain int argument would be cut to 32 bits)
+_SIGNATURES = {
+    "nk_compact_indices": [_P, _I, _I, _P, _P, _P, _P],
+    "nk_compact_pool": [_P, _P, _I, _I, _P, _P, _P],
+    "nk_megastep": [_P] * 11,
+}
+
+_LIB = None
+build_seconds: float | None = None  # wall time of this process's build
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.environ.get("NVCC"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))) + sorted(
+        glob.glob(os.path.join(CSRC, "*.cuh"))
+    )
+
+
+def library(verbose: bool = False) -> ctypes.CDLL:
+    """The kernel library, built on first use (`verbose` prints ptxas's
+    register and shared-memory report of a fresh build)."""
+    global _LIB, build_seconds
+    if _LIB is not None:
+        return _LIB
+    srcs = _sources()
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        with open(s, "rb") as f:
+            h.update(os.path.basename(s).encode() + f.read())
+    so = os.path.join(BUILD, f"libnk_kernels_{h.hexdigest()[:16]}.so")
+    if not os.path.exists(so):
+        os.makedirs(BUILD, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", tmp, *[s for s in srcs if s.endswith(".cu")]]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
+            )
+        if verbose:
+            print(res.stderr, flush=True)
+        os.replace(tmp, so)
+        build_seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(so)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.nk_error_string.argtypes = [ctypes.c_int]
+    lib.nk_error_string.restype = ctypes.c_char_p
+    _LIB = lib
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        msg = _LIB.nk_error_string(err).decode() if _LIB is not None else ""
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def stream(t) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())

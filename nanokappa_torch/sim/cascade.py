@@ -1,0 +1,302 @@
+"""The narrow boundary-event machinery: absorb / periodic / reflect on a
+fixed-width buffer of exported particle rows.
+
+Torch twin of nanokappa_tpu/sim/cascade.py (`run_event_buffer` :283 and
+`_event_round` :482). Per round, a lane sitting on facet `coll_facet`:
+  T/F facet -> absorbed, energy/flux ledgered per reservoir
+               (classes/Population.py:1565-1608);
+  P facet   -> translated by the facet-pair centroid offset
+               (classes/Population.py:1463-1489);
+  R facet   -> specular with probability = Ziman specularity (through the
+               `spec2` decision table, occupation conserved) else diffuse
+               re-emission at the local wall temperature, drawn by Walker
+               alias through `diff2` (classes/Population.py:941-1015).
+Round 1 runs at buffer width; the few survivors are compacted (kernel C,
+ops/compact.py) into a narrow buffer for the remaining rounds.
+
+Rows are SoA (16, E): the drift kernel exports them in that layout.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+import torch
+
+from nanokappa_torch.constants import HBAR
+from nanokappa_torch.geometry.device import DeviceGeometry
+from nanokappa_torch.geometry.domain import BC
+from nanokappa_torch.material.tables import MaterialTables
+from nanokappa_torch.ops.compact import compact_indices
+from nanokappa_torch.ops.raycast import raycast
+from nanokappa_torch.sim.binning import interp_T_particles, segment_sum, subvol_id
+from nanokappa_torch.sim.bose import occupation_delta_T, occupation_delta_omega
+from nanokappa_torch.sim.boundary_tables import BoundaryTables
+from nanokappa_torch.sim.scatter import blend_tau_sv, lifetime_by_sv
+from nanokappa_torch.sim.state import (
+    C_CF, C_DEV, C_MODE, C_OMEGA, C_ONF, C_POS, C_REM, C_SV, C_TAU, C_VEL,
+    SimParams, as_f32, as_i32,
+)
+
+_REMAIN_EPS = 1e-5  # fraction of dt below which the remaining path is dust
+
+
+def pad8(n: int) -> int:
+    return max(8, -(-n // 8) * 8)
+
+
+@dataclass
+class _Buf:
+    pos: torch.Tensor  # (E,3)
+    mode: torch.Tensor  # (E,) i32
+    vel: torch.Tensor  # (E,3)
+    omega: torch.Tensor
+    tau: torch.Tensor
+    dev: torch.Tensor
+    alive: torch.Tensor  # (E,) bool
+    t_coll: torch.Tensor
+    coll_facet: torch.Tensor  # (E,) i32
+    on_facet: torch.Tensor  # (E,) i32
+    remaining: torch.Tensor
+    ledger: torch.Tensor  # (R8,5): [energy, flux xyz, absorbed count]
+    lost: torch.Tensor  # () i32 defective lanes
+    round: int
+
+    def pending(self) -> torch.Tensor:
+        return self.alive & (self.remaining > _REMAIN_EPS)
+
+    def rows(self, alive: torch.Tensor, sv_bits: torch.Tensor) -> torch.Tensor:
+        """(16, E) packed rows of the buffer's lanes."""
+        return torch.cat(
+            [
+                self.pos.T, self.vel.T, self.omega[None], self.tau[None],
+                self.dev[None], as_f32(self.mode)[None],
+                as_f32(self.coll_facet)[None], self.t_coll[None],
+                as_f32(self.on_facet)[None], self.remaining[None],
+                alive.float()[None], sv_bits[None],
+            ]
+        )
+
+
+def run_event_buffer(
+    rows: torch.Tensor,  # (16, E) packed rows of pending-event particles
+    vbuf: torch.Tensor,  # (E,) validity mask (False = padding lane)
+    geo: DeviceGeometry,
+    mat: MaterialTables,
+    btab: BoundaryTables,
+    params: SimParams,
+    gen: torch.Generator,
+    T_sv: torch.Tensor,
+    R8: int,
+):
+    """Lanes enter sitting on facet C_CF with C_REM > 0. Returns
+    (rows_out (16, E) with C_ALIVE updated, ledger (R8,5), lost_stuck
+    (quarantined after k_max rounds), lost_defective (no boundary found),
+    frozen (narrow-buffer overflow)) — counts as device scalars."""
+    E = rows.shape[1]
+    dev = rows.device
+    buf = _Buf(
+        pos=rows[C_POS].T,
+        mode=as_i32(rows[C_MODE]),
+        vel=rows[C_VEL].T,
+        omega=rows[C_OMEGA],
+        tau=rows[C_TAU],
+        dev=rows[C_DEV],
+        alive=vbuf,
+        t_coll=torch.zeros(E, device=dev),
+        coll_facet=torch.where(vbuf, as_i32(rows[C_CF]), -1),
+        on_facet=as_i32(rows[C_ONF]),
+        remaining=torch.where(vbuf, rows[C_REM], 0.0),
+        ledger=torch.zeros((R8, 5), device=dev),
+        lost=torch.zeros((), dtype=torch.int32, device=dev),
+        round=0,
+    )
+    tau_sv_blend = blend_tau_sv(mat, T_sv)
+
+    def body(b):
+        return _event_round(b, geo, mat, btab, params, R8, T_sv, tau_sv_blend, gen)
+
+    # ---- round 1 at full buffer width; most events finish here -------------
+    buf1 = body(buf)
+
+    # ---- rounds 2+ on a compacted narrow buffer (E // 4 lanes) -------------
+    EVT2 = pad8(max(E // 4, 512))
+    surv = buf1.pending()
+    sidx2, n2 = compact_indices(surv, EVT2)
+    frozen2 = surv.sum(dtype=torch.int32) - n2  # overflow: stay alive, frozen
+    v2 = torch.arange(EVT2, device=dev) < n2
+    g = torch.clamp(sidx2, max=E - 1).long()
+    buf2 = _Buf(
+        pos=buf1.pos[g],
+        mode=buf1.mode[g],
+        vel=buf1.vel[g],
+        omega=buf1.omega[g],
+        tau=buf1.tau[g],
+        dev=buf1.dev[g],
+        alive=v2,
+        t_coll=torch.where(v2, buf1.t_coll[g], 0.0),
+        coll_facet=torch.where(v2, buf1.coll_facet[g], -1),
+        on_facet=buf1.on_facet[g],
+        remaining=torch.where(v2, buf1.remaining[g], 0.0),
+        ledger=buf1.ledger,
+        lost=buf1.lost,
+        round=buf1.round,
+    )
+    # the reference's `while np.any(calculated_ts < 1)` (one host read per
+    # round; the deep chains behind it are rare)
+    while buf2.round < params.k_max and bool(buf2.pending().any()):
+        buf2 = body(buf2)
+
+    sv_bits = rows[C_SV]
+    rows_out = buf1.rows(buf1.alive, sv_bits)
+    # stuck after k_max rounds: quarantine (reference indexes_del_extra,
+    # classes/Population.py:1553,1572)
+    stuck2 = buf2.pending()
+    lost_stuck = stuck2.sum(dtype=torch.int32)
+    rows2 = buf2.rows(buf2.alive & ~stuck2, sv_bits[g])
+    # scatter the narrow results back; sentinel lanes (index E) land in a
+    # spare column that is dropped
+    ext = torch.cat([rows_out, torch.zeros((rows.shape[0], 1), device=dev)], 1)
+    ext[:, sidx2.long()] = rows2
+    return ext[:, :E], buf2.ledger, lost_stuck, buf2.lost, frozen2
+
+
+def _event_round(
+    b: _Buf,
+    geo: DeviceGeometry,
+    mat: MaterialTables,
+    btab: BoundaryTables,
+    params: SimParams,
+    R8: int,
+    T_sv: torch.Tensor,
+    tau_sv_blend: torch.Tensor,
+    gen: torch.Generator,
+) -> _Buf:
+    dt = params.dt
+    E = b.pos.shape[0]
+    # ONE uniform tensor serves specularity, alias slot and alias accept
+    u4 = torch.rand((E, 4), generator=gen, device=b.pos.device)
+
+    at_wall = b.alive & (b.remaining > _REMAIN_EPS) & (b.t_coll <= 1e-9)
+    cf = torch.clamp(b.coll_facet, 0, geo.n_facets - 1)
+    cfl = cf.long()
+    at_wall = at_wall & (b.coll_facet >= 0)
+    bc = geo.facet_bc[cfl]
+
+    # --- absorption at reservoirs (T/F) -------------------------------------
+    absorb = at_wall & ((bc == int(BC.TEMPERATURE)) | (bc == int(BC.FLUX)))
+    res_id = geo.facet_res[cfl]
+    T_res = geo.facet_value[cfl]
+    dn_abs = b.dev - occupation_delta_T(T_res, params.t_reference, b.omega)
+    e_abs = HBAR * b.omega * dn_abs
+    n_out = geo.facet_normal[cfl]
+    vdn = (b.vel * n_out).sum(dim=1)
+    # reference ledger: hflux += e*v/(v.n) (classes/Population.py:1599-1600),
+    # with the grazing-incidence obliquity clamped at 1e3x (|v.n| >= 1e-3|v|)
+    vmag = torch.linalg.vector_norm(b.vel, dim=1)
+    vdn_safe = torch.sign(vdn) * torch.maximum(vdn.abs(), 1e-3 * vmag)
+    flux_w = torch.where(vdn_safe.abs() > 1e-30, e_abs / vdn_safe, 0.0)
+    seg = torch.where(absorb & (res_id >= 0), res_id, R8 - 1)
+    fw = torch.where(absorb, flux_w, 0.0)
+    vals = torch.stack(
+        [
+            torch.where(absorb, e_abs, 0.0),
+            fw * b.vel[:, 0],
+            fw * b.vel[:, 1],
+            fw * b.vel[:, 2],
+            absorb.float(),
+        ],
+        dim=1,
+    )
+    ledger = b.ledger + segment_sum(vals, seg, R8)
+    alive = b.alive & ~absorb
+    remaining = torch.where(absorb, 0.0, b.remaining)
+
+    # --- periodic translation -------------------------------------------------
+    per = at_wall & (bc == int(BC.PERIODIC))
+    pos = b.pos + torch.where(per, 1.0, 0.0)[:, None] * geo.periodic_shift[cfl]
+    on_facet = torch.where(per, geo.periodic_pair[cfl], b.on_facet)
+
+    # --- rough-wall reflection -------------------------------------------------
+    ref = at_wall & (bc == int(BC.ROUGH))
+    if btab.n_rough > 0:
+        i_rough = torch.clamp(
+            geo.facet_rough[cfl], 0, btab.row_of_rough.shape[0] - 1
+        ).long()
+        # a back-side hit (velocity against the stored normal) uses the row
+        # built for the flipped normal (two-sided internal membranes)
+        row = torch.where(
+            vdn < 0.0, btab.row_back[i_rough], btab.row_of_rough[i_rough]
+        ).long()
+    else:
+        row = torch.zeros_like(cfl)
+    sc = btab.spec2[row, b.mode.long()]  # (E,2) [specularity, bitcast(corr)]
+    p_spec = sc[:, 0]
+    corr_m = as_i32(sc[:, 1])
+    spec = ref & (u4[:, 0] <= p_spec) & (corr_m >= 0)
+    diff = ref & ~spec
+
+    # diffuse re-emission by Walker alias sampling
+    M = btab.diffuse_prob.shape[1]
+    j = torch.clamp((u4[:, 1] * M).to(torch.int32), max=M - 1)
+    pa = btab.diff2[row, j.long()]  # (E,2) [alias prob, bitcast(alias idx)]
+    accept = u4[:, 2] < pa[:, 0]
+    mode_diff = torch.where(accept, j, as_i32(pa[:, 1]))
+
+    changed = spec | diff
+    mode = torch.where(spec, corr_m, torch.where(diff, mode_diff, b.mode))
+    ov = mat.omega_vel[mode.long()]  # (E,4) shared table
+    omega_new = torch.where(changed, ov[:, 0], b.omega)
+    vel_new = torch.where(changed[:, None], ov[:, 1:4], b.vel)
+
+    sv_here = subvol_id(geo, pos)
+    T_wall = interp_T_particles(geo, T_sv, pos, sv_here, params.temp_interp)
+    tau_new = lifetime_by_sv(mat, T_sv, sv_here, mode, tau_sv=tau_sv_blend)
+    tau_new = torch.where(changed, tau_new, b.tau)
+    dev = torch.where(
+        spec,
+        b.dev + occupation_delta_omega(params.t_reference, b.omega, omega_new),
+        torch.where(
+            diff,
+            occupation_delta_T(T_wall, params.t_reference, omega_new),
+            b.dev,
+        ),
+    )
+    on_facet = torch.where(ref, cf, on_facet)
+
+    # --- re-cast + drift the buffer ---------------------------------------------
+    recast = per | ref
+    t_ps, facet_new = raycast(geo, pos, vel_new, on_facet)
+    t_coll = torch.where(recast, t_ps / dt, b.t_coll)
+    coll_facet = torch.where(recast, facet_new, b.coll_facet)
+
+    step_frac = torch.where(
+        alive & (remaining > 0), torch.minimum(t_coll, remaining), 0.0
+    )
+    step_frac = torch.where(torch.isfinite(step_frac), step_frac, remaining)
+    pos = pos + vel_new * (dt * step_frac)[:, None]
+    t_coll = t_coll - step_frac
+    remaining = torch.clamp(remaining - step_frac, min=0.0)
+    # defective lanes (no boundary found): drain them like the reference's
+    # indexes_del_extra
+    bad = alive & (remaining > _REMAIN_EPS) & (coll_facet < 0)
+    alive = alive & ~bad
+    remaining = torch.where(bad, 0.0, remaining)
+
+    return replace(
+        b,
+        pos=pos,
+        mode=mode,
+        vel=vel_new,
+        omega=omega_new,
+        tau=tau_new,
+        dev=dev,
+        alive=alive,
+        t_coll=t_coll,
+        coll_facet=coll_facet,
+        on_facet=on_facet,
+        remaining=remaining,
+        ledger=ledger,
+        lost=b.lost + bad.sum(dtype=torch.int32),
+        round=b.round + 1,
+    )

@@ -1,0 +1,362 @@
+"""The fused (v2) timestep on the slim specular-mirror path.
+
+Torch twin of nanokappa_tpu/sim/fused.py `make_step_v2` (:576) for the
+film: an axis-aligned box with slice subvolumes, nearest temperatures,
+pooled reservoirs and eta = 0 (fully specular) rough walls whose
+correspondence is the exact crystal mirror on one axis (the slim gate,
+sim/boundary_tables.py slim_mirror_axis). Reference semantics
+(classes/Population.py:1724-1769 run_timestep) with the JAX package's one
+reordering: the RTA scattering of step k runs at the START of step k+1's
+drift kernel ("deferred RTA"; `make_finalize` applies the pending one).
+
+Pipeline per step, on the (18, N) pool:
+  1. reservoir injection rows (sim/reservoir.py) append at the pool tail,
+  2. kernel A (ops/megastep.py): deferred RTA, stale ray cast, drift,
+     in-kernel absorb/periodic/specular rounds, export of the still-pending
+     rows, subvolume sums of the lanes that stay,
+  3. the narrow event machinery (sim/cascade.py) on the exported rows,
+  4. its rows are binned and appended at the tail WHOLE (the EVT_CAP window
+     advances the tail even where lanes are dead — the runner's compaction
+     cadence in sim/step.py is sized for that),
+  5. an O(SV) postlude inverts T(E).
+
+The tail position is a host integer: injection counts come from the host
+accumulator (sim/reservoir.py pooled_counts), so no step reads the device
+to know where to append.
+"""
+
+from __future__ import annotations
+
+from dataclasses import replace
+
+import numpy as np
+import torch
+
+from nanokappa_torch.constants import EVPSA2_IN_WM2
+from nanokappa_torch.geometry.device import DeviceGeometry, host
+from nanokappa_torch.material.tables import MaterialTables
+from nanokappa_torch.sim.binning import (
+    interp_T_particles, lookup_E_of_T, lookup_T_of_E, particle_energies,
+    segment_sum, subvol_id,
+)
+from nanokappa_torch.sim.boundary_tables import (
+    BoundaryTables, combined_mirror_rows, slim_mirror_axis,
+)
+from nanokappa_torch.sim.cascade import run_event_buffer
+from nanokappa_torch.sim.reservoir import ReservoirTables, sample_injections
+from nanokappa_torch.sim.scatter import rta_scatter, slope_pair
+from nanokappa_torch.sim.state import (
+    C_ALIVE, C_DEV, C_MODE, C_OMEGA, C_POS, C_SV, C_TAU, C_VEL,
+    R_MMODE, R_TAUB, STALE, SimParams, SimState, as_f32, as_i32,
+)
+
+
+def _todo(what: str, item: int):
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP queue 1, item {item})"
+    )
+
+
+def mirror_eligible(geo: DeviceGeometry, btab, params: SimParams, mat=None) -> bool:
+    """In-kernel specular fast path: at least one rough facet, every rough
+    row sharing ONE correspondence table, specularity exactly 1 wherever a
+    correspondence exists (eta = 0), and >= 95% of the modes that can hit a
+    rough wall carrying a partner (nanokappa_tpu/sim/fused.py:380)."""
+    from nanokappa_torch.geometry.domain import BC
+    from nanokappa_torch.sim.boundary_tables import _host_table
+
+    if btab is None or mat is None or int(btab.n_rough) == 0:
+        return False
+    if not geo.is_box:
+        return False
+    spec = _host_table(btab, "specularity")
+    corr = _host_table(btab, "corr")
+    if not np.all((spec == 1.0) | (corr < 0)):  # eta = 0 everywhere
+        return False
+    rows = combined_mirror_rows(btab, mat)
+    if rows is None:
+        return False
+    cur = np.asarray(rows)[:, 1].view(np.int32)
+    if hasattr(mat, "omega_vel"):  # device MaterialTables
+        v = host(mat.omega_vel)[:, 1:4]
+    else:  # host Material
+        from nanokappa_torch.sim.boundary_tables import _mode_tables
+
+        v, _, _ = _mode_tables(mat)
+    bc = host(geo.facet_bc)
+    normals = host(geo.facet_normal)[bc == int(BC.ROUGH)]
+    need = np.zeros(cur.shape[0], bool)
+    for n in normals:
+        need |= (v @ n) > 1e-12
+    if not need.any() or (cur[need] >= 0).mean() < 0.95:
+        return False
+    return True
+
+
+def require_slice(geo, btab, params: SimParams, mat) -> None:
+    """Raise NotImplementedError, naming the ROADMAP item that ports it, for
+    any configuration outside the film slice."""
+    if params.n_shards != 1:
+        raise _todo("particle-axis sharding (multi-GPU)", 12)
+    if not geo.is_box:
+        raise _todo("non-box meshes (kernel A's triangle cast)", 9)
+    if geo.subvol_type != "slice":
+        raise _todo(f"{geo.subvol_type!r} subvolumes", 10)
+    if geo.n_subvols > 512:
+        raise _todo(f"{geo.n_subvols} slices (the drift kernel takes 512)", 11)
+    if params.temp_interp != "nearest":
+        raise _todo(f"temp_interp={params.temp_interp!r}", 10)
+    if params.scat_model in ("k", "wavevector", "wave_vector"):
+        raise _todo("the k (wavevector) scattering model", 10)
+    if geo.n_reservoirs > 0 and params.res_gen != "pooled":
+        raise _todo(f"reservoir_gen={params.res_gen!r}", 5)
+    if geo.n_reservoirs > 7:
+        raise _todo(f"{geo.n_reservoirs} reservoirs (the ledger holds 7)", 10)
+    if not mirror_eligible(geo, btab, params, mat):
+        raise _todo(
+            "rough walls off the specular-mirror path (eta > 0: dkern and "
+            "the non-mirror kernel branch)", 9,
+        )
+    if slim_mirror_axis(geo, btab, mat) is None:
+        raise _todo("the full 24-row mirror cache", 10)
+
+
+def autosize_evt_cap(N_shard: int) -> int:
+    """Event-buffer width on the mirror path: exports are 3+-bounce chains
+    and no-partner lanes only (~0.013% of N on the film) — N/2048 with a
+    floor (nanokappa_tpu/sim/fused.py:183)."""
+    return max(2048, N_shard // 2048)
+
+
+def event_window(params: SimParams) -> int:
+    """EVT_CAP, the event window's width: kernel A's export cap and the tail
+    advance of every step's append (the runner's compaction cadence in
+    sim/step.py is sized from it)."""
+    return params.evt_cap or autosize_evt_cap(params.n_cap)
+
+
+def expand_slim_mirror(pool: torch.Tensor, flip_axis: int) -> torch.Tensor:
+    """(18, N) slim pool -> the JAX package's full (N, 8) mirror cache
+    (nanokappa_tpu/sim/fused.py _expand_slim_mirror): under the slim gate the
+    partner's omega and lifetime bits equal the main mode's and its
+    velocity is the main one with the wall-axis component negated."""
+    m_mode_b = pool[R_MMODE]
+    tau_b = pool[R_TAUB]
+    has = as_i32(m_mode_b) >= 0
+    v = [torch.where(has, -pool[3 + k] if k == flip_axis else pool[3 + k], 0.0)
+         for k in range(3)]
+    cols = [
+        m_mode_b,
+        torch.where(has, pool[C_OMEGA], 0.0),
+        *v,
+        torch.where(has, pool[C_TAU], 0.0),
+        tau_b,
+        torch.where(has, tau_b, 0.0),
+    ]
+    return torch.stack(cols, dim=1)
+
+
+def _append_window(pool, rows, valid, tail: int) -> bool:
+    """Write `rows` (C, w) into pool lanes [tail, tail + w) where `valid`;
+    the window's other lanes keep their rows (nanokappa_tpu/sim/fused.py
+    _append_window, here plain slicing at a host offset). Returns False, and
+    writes nothing, when the pool has no room for the whole window."""
+    w = rows.shape[1]
+    if tail + w > pool.shape[1]:
+        return False
+    win = pool[:, tail : tail + w]
+    win.copy_(torch.where(valid[None], rows, win))
+    return True
+
+
+def make_step_v2(
+    geo: DeviceGeometry,
+    mat: MaterialTables,
+    btab: BoundaryTables,
+    rtab: ReservoirTables,
+    params: SimParams,
+):
+    """Returns step(state) -> (state, StepOutputs), advancing `state` in place."""
+    from nanokappa_torch.ops.megastep import R8, drift_megastep, mega_config
+    from nanokappa_torch.sim.step import StepOutputs
+
+    require_slice(geo, btab, params, mat)
+    device = geo.device
+    flip = slim_mirror_axis(geo, btab, mat)
+    tau_T = host(mat.tau_T)
+    N = params.n_cap
+    R = geo.n_reservoirs
+    SV = geo.n_subvols
+    M = mat.tau.shape[1]
+    EVT_CAP = event_window(params)
+    cfg = mega_config(geo, params, flip, (float(tau_T[0]), float(tau_T[-1])), EVT_CAP)
+    SV8 = cfg.sv8
+    # partner-mode bits of every mode (the slim cache's row 16)
+    corr_bits = np.ascontiguousarray(combined_mirror_rows(btab, mat)[:, 1])
+    mtab1 = torch.as_tensor(corr_bits, device=device)
+    if R > 0:
+        # injections read their partner mode from the SAME table row that
+        # gives omega/velocity/tau: [omega, vx, vy, vz, tau, corr bits]
+        ip = host(rtab.inj_props)
+        ext = np.concatenate(
+            [ip, np.broadcast_to(corr_bits[None, :, None], ip.shape[:2] + (1,))],
+            axis=-1,
+        )
+        rtab = replace(rtab, inj_props=torch.as_tensor(ext, device=device))
+    dens = 1.0 / (mat.n_qpoints * mat.volume_unitcell)
+    lane_e = torch.arange(EVT_CAP, device=device)
+    lane_i = torch.arange(params.inj_cap, device=device)
+
+    def step(state: SimState):
+        pool = state.pool
+        tail = state.tail
+        cap = params.inj_cap
+
+        # 1. injection rows appended at the pool tail; with no room for the
+        # whole window the batch is dropped and counted
+        lost_inj = 0
+        if R > 0:
+            rows, n_valid, new_counter, dropped, props = sample_injections(
+                state.res_counter, geo, rtab, params, state.gen
+            )
+            mode_inj = torch.clamp(as_i32(rows[C_MODE]), 0, M - 1)
+            sv_inj = subvol_id(geo, rows[C_POS].T)
+            a_inj, b_inj = slope_pair(mat, state.T_sv, sv_inj, mode_inj)
+            rows[C_TAU] = a_inj
+            inj = torch.cat([rows, props[:, 5][None], b_inj[None]])
+            if _append_window(pool, inj, lane_i < n_valid, tail):
+                tail += n_valid
+                lost_inj = dropped
+            else:
+                lost_inj = dropped + n_valid
+            state.res_counter = new_counter
+
+        # 2. kernel A: one pass over the pool
+        rows_x, counts, kledger, kbins = drift_megastep(
+            pool, state.T_sv, state.step > 0, cfg
+        )
+        frozen_k = counts[0] - counts[2]
+
+        # 3. the narrow machinery on the exported rows
+        vbuf = lane_e < counts[2]
+        rows_out, mledger, lost_stuck, lost_def, frozen2 = run_event_buffer(
+            rows_x[:16], vbuf, geo, mat, btab, params, state.gen, state.T_sv, R8
+        )
+
+        # 4. bin the event rows (their end-of-step state); with the kernel's
+        # sums this partitions the population exactly
+        alive_e = (rows_out[C_ALIVE] > 0.5) & vbuf
+        sv_e = subvol_id(geo, rows_out[C_POS].T)
+        e_e = particle_energies(
+            rows_out[C_OMEGA], rows_out[C_DEV], alive_e,
+            state.T_sv[sv_e.long()], params.t_reference,
+        )
+        vel_e = torch.where(alive_e[None], rows_out[C_VEL], 0.0)
+        vals_e = torch.stack(
+            [e_e, e_e * vel_e[0], e_e * vel_e[1], e_e * vel_e[2], alive_e.float()], 1
+        )
+        ebins = segment_sum(vals_e, torch.where(alive_e, sv_e, SV8), SV8)
+
+        # 5. the event rows append at the tail, uncompacted (the window
+        # advances the tail by EVT_CAP; dead lanes keep the window's rows)
+        rows_out[C_SV] = as_f32(sv_e)
+        mode_e = torch.clamp(as_i32(rows_out[C_MODE]), 0, M - 1)
+        a_e, b_e = slope_pair(mat, state.T_sv, sv_e, mode_e)
+        rows_out[C_TAU] = torch.where(alive_e, a_e, rows_out[C_TAU])
+        app = torch.cat([rows_out, mtab1[mode_e.long()][None], b_e[None]])
+        if _append_window(pool, app, alive_e, tail):
+            tail += EVT_CAP
+            lost3 = torch.zeros((), dtype=torch.int32, device=device)
+        else:
+            lost3 = alive_e.sum(dtype=torch.int32)
+
+        # 6. postlude: normalisation + T inversion (sim/binning.py semantics)
+        sums = (kbins + ebins)[:SV]
+        e_raw = sums[:, 0]
+        phi_raw = sums[:, 1:4]
+        np_sv = sums[:, 4].to(torch.int32)
+        if params.energy_normal == "fixed":
+            vol = geo.subvol_volume
+            norm = torch.full_like(vol, float(params.n_active_modes)) / (
+                params.particle_density * vol
+            )
+        else:  # 'mean'
+            npf = torch.clamp(np_sv, min=1).float()
+            norm = torch.full_like(npf, float(params.n_active_modes)) / npf
+            norm = torch.where(np_sv == 0, 0.0, norm)
+        e_sv = e_raw * norm * dens
+        phi = phi_raw * (norm * dens)[:, None] * EVPSA2_IN_WM2
+        E_sv = e_sv + lookup_E_of_T(mat, state.T_sv)
+        T_new = lookup_T_of_E(mat, E_sv)
+
+        ledger = kledger + mledger
+        state.T_sv = T_new
+        state.Np_sv = np_sv
+        state.tail = tail
+        state.n_leaving = ledger[:R, 4].to(torch.int32)
+        state.res_energy_balance = state.res_energy_balance - ledger[:R, 0]
+        state.res_heat_flux = state.res_heat_flux + ledger[:R, 1:4]
+        state.lost = state.lost + torch.stack(
+            [lost3 + lost_inj, lost_stuck, lost_def]
+        ).to(torch.int32)
+        state.frozen = state.frozen + (frozen_k + frozen2).to(torch.int32)
+        state.step += 1
+        out = StepOutputs(
+            T_sv=T_new,
+            E_sv=E_sv,
+            phi_sv=phi,
+            Np_sv=np_sv,
+            N_p=np_sv.sum(),
+            total_energy=e_raw.sum(),
+            res_energy_balance=state.res_energy_balance,
+            res_heat_flux=state.res_heat_flux,
+            n_leaving=state.n_leaving,
+            lost=state.lost.sum(),
+            lost_split=state.lost,
+            frozen=state.frozen,
+        )
+        return state, out
+
+    return step
+
+
+def refresh_tau_T(state: SimState, geo, mat, params) -> SimState:
+    """Rebuild the slope-form lifetime pairs (a, b) for the subvolumes'
+    CURRENT T-grid bins (the partner's pair equals the main mode's under
+    the slim gate, so one refresh serves both)."""
+    pool = state.pool
+    alive = state.alive
+    sv = subvol_id(geo, pool[C_POS].T)
+    a, b = slope_pair(
+        mat, state.T_sv, sv, torch.clamp(state.mode, 0, mat.tau.shape[1] - 1)
+    )
+    pool[C_TAU] = torch.where(alive, a, pool[C_TAU])
+    pool[R_TAUB] = torch.where(alive, b, pool[R_TAUB])
+    return state
+
+
+def make_finalize(geo, mat, params):
+    """Apply the PENDING deferred RTA so written particle data matches the
+    reference's end-of-step state; returns a finalised copy (the running
+    state stays un-finalised — the next drift kernel applies it there).
+    Lifetimes are always the slope form tau = a + b*T: C_TAU holds a and
+    row 17 holds b."""
+    tau_T = host(mat.tau_T)
+    t_lo, t_hi = float(tau_T[0]), float(tau_T[-1])
+
+    def finalize(state: SimState) -> SimState:
+        T_p = interp_T_particles(
+            geo, state.T_sv, state.pos, state.sv_col, params.temp_interp
+        )
+        ok = state.alive & (state.coll_facet != STALE) & (state.step > 0)
+        tau = state.tau + state.pool[R_TAUB] * torch.clamp(T_p, t_lo, t_hi)
+        dev = rta_scatter(
+            mat, state.dev, state.mode, state.omega, T_p, ok,
+            params.dt, params.t_reference, tau=tau,
+        )
+        pool = state.pool.clone()
+        pool[C_DEV] = dev
+        return replace(state, pool=pool)
+
+    return finalize
+

@@ -1,0 +1,218 @@
+"""Isothermal reservoir subsystem: entry probabilities and device injection.
+
+Host side precomputes per-(reservoir, mode) entry probabilities
+(reference `enter_probability`, classes/Population.py:146-161):
+
+    enter_prob[r, m] = max(v_m . (-n_r), 0) * dt / bound_thickness_r,
+    bound_thickness_r = N_active_modes / (particle_density * A_r).
+
+The device side is the 'pooled' generation scheme of the JAX package
+(nanokappa_tpu/sim/reservoir.py sample_injections): a scalar fractional
+accumulator per reservoir fixes each step's count, modes come from the
+Walker alias table of enter_prob, arrival times and wall positions are
+uniform. The accumulator is float32 NumPy on the host — the same float32
+arithmetic as the JAX package's device array — so the per-step counts, and
+with them the pool's tail arithmetic, are known without a device sync.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from nanokappa_torch.geometry.device import DeviceGeometry, host
+from nanokappa_torch.geometry.domain import Domain
+from nanokappa_torch.material.tables import Material
+from nanokappa_torch.sim.bose import occupation_delta_T
+from nanokappa_torch.sim.state import (
+    STALE, N_COLS, C_ALIVE, C_CF, C_DEV, C_MODE, C_OMEGA, C_ONF, C_POS,
+    C_REM, C_SV, C_TAU, C_TCOLL, C_VEL, SimParams, as_f32,
+)
+
+
+@dataclass(frozen=True)
+class ReservoirTables:
+    enter_prob: torch.Tensor  # (R,M) f32
+    enter_alias: torch.Tensor  # (R,M,2) f32 Walker alias [accept p, bitcast
+    #   partner id]
+    enter_lambda: torch.Tensor  # (R,) f32 total entry rate per reservoir
+    inj_props: torch.Tensor  # (R,M,5) f32 per-(reservoir, mode) injection
+    #   properties [omega, vx, vy, vz, tau(T_res)]
+    n_reservoirs: int = field(metadata=dict(static=True))
+
+    @property
+    def lambda_host(self) -> np.ndarray:
+        """(R,) float32 entry rates on the host (the pooled accumulator's
+        increment), cached so a step never reads them back from the device."""
+        cached = getattr(self, "_lambda_host", None)
+        if cached is None:
+            cached = self.enter_lambda.detach().cpu().numpy()
+            object.__setattr__(self, "_lambda_host", cached)
+        return cached
+
+
+def build_reservoir_tables(
+    mat: Material,
+    domain: Domain,
+    dt: float,
+    particle_density: float,
+    device="cpu",
+) -> ReservoirTables:
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
+
+    res = domain.res_facets
+    R = len(res)
+    M = mat.n_modes
+    if R == 0:
+        return ReservoirTables(
+            enter_prob=f32(np.zeros((0, M))),
+            enter_alias=f32(np.zeros((0, M, 2))),
+            enter_lambda=f32(np.zeros(0)),
+            inj_props=f32(np.zeros((0, M, 5))),
+            n_reservoirs=0,
+        )
+    v = mat.group_vel.reshape(M, 3)
+    normals = domain.mesh.facet_normals[res]  # outward
+    areas = domain.mesh.facet_areas[res]
+    bound_thickness = mat.n_active_modes / (particle_density * areas)  # (R,)
+    proj = v @ (-normals.T)  # (M,R) projection on inward normals
+    ep = np.maximum(proj.T * dt / bound_thickness[:, None], 0.0)  # (R,M)
+    from nanokappa_torch.sim.boundary_tables import build_alias
+
+    ap = np.ones((R, M))
+    ai = np.zeros((R, M), dtype=np.int64)
+    for r in range(R):
+        ap[r], ai[r] = build_alias(ep[r])
+    alias = np.stack(
+        [ap.astype(np.float32), ai.astype(np.int32).view(np.float32)],
+        axis=-1,
+    )
+
+    # per-(reservoir, mode) injection properties at the reservoir
+    # temperature (flux facets read 0 K after nan_to_num, clamping the
+    # lifetime lerp at the table edge)
+    T_res = np.nan_to_num(np.asarray(domain.res_values, dtype=np.float64))
+    tau_T = np.asarray(mat.tau_T, dtype=np.float64)
+    tau2d = np.asarray(mat.tau, dtype=np.float64).reshape(len(tau_T), M)
+    nT = len(tau_T)
+    ti = np.clip(np.searchsorted(tau_T, T_res) - 1, 0, max(nT - 2, 0))
+    hi = np.minimum(ti + 1, nT - 1)
+    w = np.clip(
+        (T_res - tau_T[ti]) / np.maximum(tau_T[hi] - tau_T[ti], 1e-30),
+        0.0, 1.0,
+    )
+    tau_res = tau2d[ti] * (1.0 - w)[:, None] + tau2d[hi] * w[:, None]
+    om = np.asarray(mat.omega).reshape(1, M).repeat(R, axis=0)
+    props = np.concatenate(
+        [om[:, :, None], v.reshape(1, M, 3).repeat(R, axis=0),
+         tau_res[:, :, None]], axis=-1
+    )
+    return ReservoirTables(
+        enter_prob=f32(ep),
+        enter_alias=f32(alias),
+        enter_lambda=f32(ep.sum(axis=1)),
+        inj_props=f32(props),
+        n_reservoirs=R,
+    )
+
+
+def autosize_inj_cap(rtab: ReservoirTables, n_shards: int = 1) -> int:
+    """Injection-buffer width from the expected entry rate: sum(enter_prob)
+    IS the expected count; 1.3x + 128 covers the fractional-draw noise."""
+    if rtab.n_reservoirs == 0:
+        return 128
+    exp = float(np.sum(host(rtab.enter_prob))) / max(n_shards, 1)
+    return max(512, -(-int(1.3 * exp + 128) // 128) * 128)
+
+
+def autosize_c_max(rtab: ReservoirTables, n_shards: int = 1) -> int:
+    """Copies per (reservoir, mode) per step of the deterministic
+    generation lattice: floor(max enter rate) + 1 fractional."""
+    if rtab.n_reservoirs == 0:
+        return 3
+    max_ep = float(np.max(host(rtab.enter_prob))) / max(n_shards, 1)
+    return max(3, int(max_ep) + 1)
+
+
+def pooled_counts(res_counter: np.ndarray, rtab: ReservoirTables, n_shards: int):
+    """One step of the pooled accumulator, on the host in float32.
+
+    Returns (per-reservoir counts (R,) int64, new res_counter)."""
+    lam = rtab.lambda_host / np.float32(n_shards)
+    acc = res_counter[0, :, 0] + lam
+    n_r = np.floor(acc).astype(np.int32)
+    new_counter = res_counter.copy()
+    new_counter[0, :, 0] = acc - n_r.astype(np.float32)
+    return n_r.astype(np.int64), new_counter
+
+
+def sample_injections(
+    res_counter: np.ndarray,
+    geo: DeviceGeometry,
+    rtab: ReservoirTables,
+    params: SimParams,
+    gen: torch.Generator,
+):
+    """Generate this step's reservoir particles WITHOUT placing them.
+
+    Returns (rows_T (16, cap) f32 packed columns, valid lanes first;
+    n_valid (host int); new res_counter; dropped (host int); props
+    (cap, K) — the gathered per-(reservoir, mode) injection-table rows, so
+    the caller can reuse trailing columns of an extended table)."""
+    if params.res_gen != "pooled":
+        raise NotImplementedError(
+            f"reservoir_gen={params.res_gen!r} is not ported yet "
+            "(ROADMAP queue 1, item 5: constant/fixed_rate/one_to_one)"
+        )
+    if not (geo.is_box and geo.res_rect.shape[0] == rtab.n_reservoirs):
+        raise NotImplementedError(
+            "reservoir walls of non-box meshes are not ported yet "
+            "(ROADMAP queue 1, item 9)"
+        )
+    R, M_tab = rtab.enter_alias.shape[:2]
+    cap = params.inj_cap
+    dev = geo.device
+    dt = params.dt
+
+    n_r, new_counter = pooled_counts(res_counter, rtab, params.n_shards)
+    boundaries = np.cumsum(n_r)
+    total = int(boundaries[-1])
+    n_valid = min(total, cap)
+    dropped = max(total - n_valid, 0)
+
+    lane = torch.arange(cap, dtype=torch.int32, device=dev)
+    # searchsorted(boundaries, lane, side='right') clamped to R-1, from the
+    # host boundaries as scalars (no host-to-device copy)
+    inj_res = torch.zeros(cap, dtype=torch.int64, device=dev)
+    for r in range(R - 1):
+        inj_res += lane >= int(boundaries[r])
+    u5 = torch.rand((cap, 5), generator=gen, device=dev)
+    jdraw = torch.clamp((u5[:, 0] * M_tab).to(torch.int32), max=M_tab - 1)
+    pa = rtab.enter_alias[inj_res, jdraw.long()]  # (cap,2): one row gather
+    accept = u5[:, 1] < pa[:, 0]
+    inj_mode = torch.where(accept, jdraw, pa[:, 1].contiguous().view(torch.int32))
+    inj_dtin = dt * u5[:, 2]
+    u2 = u5[:, 3:5]
+    rect = geo.res_rect[inj_res]  # (cap,9)
+    inj_pos = rect[:, 0:3] + u2[:, :1] * rect[:, 3:6] + u2[:, 1:2] * rect[:, 6:9]
+
+    T_res = geo.res_temperature[inj_res]
+    props = rtab.inj_props[inj_res, inj_mode.long()]  # (cap,K)
+    inj_omega = props[:, 0]
+    rows = torch.empty((N_COLS, cap), dtype=torch.float32, device=dev)
+    rows[C_POS] = inj_pos.T
+    rows[C_VEL] = props[:, 1:4].T
+    rows[C_OMEGA] = inj_omega
+    rows[C_TAU] = props[:, 4]
+    rows[C_DEV] = occupation_delta_T(T_res, params.t_reference, inj_omega)
+    rows[C_MODE] = as_f32(inj_mode)
+    rows[C_CF] = as_f32(torch.full((cap,), STALE, dtype=torch.int32, device=dev))
+    rows[C_TCOLL] = float("inf")
+    rows[C_ONF] = as_f32(geo.res_facet[inj_res])
+    rows[C_REM] = inj_dtin / dt
+    rows[C_ALIVE] = 1.0
+    rows[C_SV] = 0.0
+    return rows, n_valid, new_counter, dropped, props

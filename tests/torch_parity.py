@@ -1,0 +1,140 @@
+"""Shared builders for the port's parity tests (tests/test_torch_*.py): one
+configuration built by both packages — the JAX reference (`nanokappa_tpu`)
+and the PyTorch port (`nanokappa_torch`) — from the same host inputs, small
+enough for the CPU (a 4^3 synthetic material, a 4096-lane pool)."""
+
+from __future__ import annotations
+
+import dataclasses
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+# the Si thin film: T/T reservoirs along x, eta = 0 (specular) z walls, one
+# periodic y pair (BASELINE config 1, bench.py:build_ctx), shortened
+FILM = dict(
+    geometry="box",
+    dimensions=(2e3, 1e3, 1e3),
+    subvolumes=("slice", 5, 0),
+    bound_pos=("relative", -0.1, 0.5, 0.5, 1.1, 0.5, 0.5,
+               0.5, 0.5, -0.1, 0.5, 0.5, 1.1),
+    bound_cond=("T", "T", "R", "R", "P"),
+    bound_values=(302.0, 298.0, 0.0, 0.0),
+    connect_pos=("relative", 0.5, -0.1, 0.5, 0.5, 1.1, 0.5),
+)
+# the film at its full 5000 x 1000 x 1000 A and 10 slices
+FILM_FULL = dict(FILM, dimensions=(5e3, 1e3, 1e3), subvolumes=("slice", 10, 0))
+# no reservoirs: periodic x and z, specular y walls (P/R/R/P)
+CLOSED_FILM = dict(
+    geometry="box",
+    dimensions=(2e3, 1e3, 1e3),
+    subvolumes=("slice", 5, 0),
+    bound_pos=("relative", 0.5, -0.1, 0.5, 0.5, 1.1, 0.5),
+    bound_cond=("R", "R"),
+    bound_values=(0.0, 0.0),
+    connect_pos=("relative", -0.1, 0.5, 0.5, 1.1, 0.5, 0.5,
+                 0.5, 0.5, -0.1, 0.5, 0.5, 1.1),
+)
+
+
+def jax_fields(obj) -> dict:
+    """A JAX dataclass as the dict of NumPy arrays convert.py takes."""
+    return {f.name: np.asarray(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+
+
+def np_(x):
+    """NumPy view of a torch tensor, JAX array or NumPy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def assert_same(a, b, path="obj"):
+    """Bit-equal arrays (same dtype, NaNs at the same places), recursively
+    through lists, tuples, dicts and plain objects."""
+    if isinstance(a, (torch.Tensor, np.ndarray)) or hasattr(a, "__array__") and not isinstance(a, (int, float, str)):
+        x, y = np_(a), np_(b)
+        assert x.dtype == y.dtype, (path, x.dtype, y.dtype)
+        assert x.shape == y.shape, (path, x.shape, y.shape)
+        if x.dtype.kind in "fc":
+            x, y = np.ascontiguousarray(x), np.ascontiguousarray(y)
+            assert np.array_equal(x.view(np.uint8), y.view(np.uint8)), path
+        else:
+            assert np.array_equal(x, y), path
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (u, v) in enumerate(zip(a, b)):
+            assert_same(u, v, f"{path}[{i}]")
+    elif isinstance(a, dict):
+        assert sorted(a) == sorted(b), path
+        for k in a:
+            assert_same(a[k], b[k], f"{path}.{k}")
+    elif hasattr(a, "__dict__") and not isinstance(a, type):
+        assert_same(vars(a), vars(b), path)
+    else:
+        assert a == b or (a != a and b != b), (path, a, b)
+
+
+def build_pair(
+    domain_kw=FILM, mesh=(4, 4, 4), n_p=3000, n_cap=4096, inj_cap=512,
+    seed=3, temp_dist="linear", subvol_temp=(), step_impl="v2",
+):
+    """The same film in both packages (host arrays bit-equal by
+    construction; the JAX init_state and the port's draw the same NumPy
+    numbers)."""
+    from nanokappa_tpu.geometry.device import build_device_geometry as j_geo
+    from nanokappa_tpu.geometry.domain import build_domain as j_dom
+    from nanokappa_tpu.material import synthetic_material as j_mat
+    from nanokappa_tpu.sim.boundary_tables import build_boundary_tables as j_bt
+    from nanokappa_tpu.sim.reservoir import build_reservoir_tables as j_rt
+    from nanokappa_tpu.sim.state import SimParams as JParams, init_state as j_init
+    from nanokappa_torch.geometry.device import build_device_geometry
+    from nanokappa_torch.geometry.domain import build_domain
+    from nanokappa_torch.material import synthetic_material
+    from nanokappa_torch.sim.boundary_tables import build_boundary_tables
+    from nanokappa_torch.sim.reservoir import build_reservoir_tables
+    from nanokappa_torch.sim.state import SimParams, init_state, particle_count
+
+    j = SimpleNamespace()
+    t = SimpleNamespace()
+    j.mat, t.mat = j_mat(mesh=mesh), synthetic_material(mesh=mesh)
+    j.dom, t.dom = j_dom(**domain_kw), build_domain(**domain_kw)
+    n_p, rho = particle_count(("total", n_p), t.mat, t.dom)
+    common = dict(
+        dt=1.0, n_cap=n_cap, inj_cap=inj_cap, temp_interp="nearest",
+        res_gen="pooled", particle_density=rho,
+        n_active_modes=t.mat.n_active_modes, t_reference=300.0,
+    )
+    j.params = JParams(step_impl=step_impl, **common)
+    t.params = SimParams(**common)
+    j.geo, t.geo = j_geo(j.dom), build_device_geometry(t.dom)
+    j.btab, t.btab = j_bt(j.mat, j.dom), build_boundary_tables(t.mat, t.dom)
+    j.rtab = j_rt(j.mat, j.dom, 1.0, rho)
+    t.rtab = build_reservoir_tables(t.mat, t.dom, 1.0, rho)
+    j.tabs, t.tabs = j.mat.device_tables(), t.mat.device_tables()
+    init = dict(temp_dist=temp_dist, subvol_temp=subvol_temp, seed=seed)
+    j.state = j_init(j.mat, j.dom, j.geo, j.params, n_p, btab=j.btab, **init)
+    t.state = init_state(t.mat, t.dom, t.geo, t.params, n_p, t.btab, **init)
+    j.n_p = t.n_p = n_p
+    return j, t
+
+
+def hazard_pool(rng, C, N, p_alive=0.6):
+    """A pool whose int rows hold small ids (float32 denormals), STALE = -2
+    (a NaN payload) and -1: values that any float arithmetic would corrupt."""
+    pool = rng.normal(size=(C, N)).astype(np.float32)
+    bits = pool.view(np.int32)
+    bits[9] = rng.integers(0, 300, N)
+    bits[10] = rng.integers(-2, 6, N)
+    bits[12] = rng.integers(-1, 6, N)
+    bits[15] = rng.integers(0, 5, N)
+    if C > 16:
+        bits[16] = rng.integers(-1, 300, N)
+    pool[14] = (rng.random(N) < p_alive).astype(np.float32)
+    return pool
+
+
+def assert_bits(a, b, msg=""):
+    a, b = np.ascontiguousarray(np_(a)), np.ascontiguousarray(np_(b))
+    np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32), err_msg=msg)
