@@ -6,11 +6,17 @@ imports neither jax nor the JAX package.
 
   * `state_from_jax` / `state_to_jax`: SimState. The JAX package carries a
     packed (N, 16) row matrix and an (N, 8) specular-mirror cache; the port
-    carries one (18, N) pool (the 16 columns as rows, then the mirror's
-    partner mode and lifetime slope). Back to JAX, the full mirror cache is
-    rebuilt from the slim rows (exact under the slim gate).
-  * `tables_from_jax`: MaterialTables, DeviceGeometry, BoundaryTables and
-    ReservoirTables, field for field.
+    carries one pool in the layout its tag names (sim/state.py): "slim" is
+    (18, N), the 16 columns as rows, then the mirror's partner mode and
+    lifetime slope; "plain" is the 16 rows alone (a JAX in-kernel-diffuse
+    pool's derived rows 16-17, |k|^2 and the partner bitmask, are dropped:
+    the port's kernel gathers them per mode). Back to JAX, the slim layout
+    rebuilds the full mirror cache (exact under the slim gate); the plain
+    layout gives an unfilled one (X_MODE = -1).
+  * `tables_from_jax`: MaterialTables, DeviceGeometry (the triangle tables
+    included), BoundaryTables (diff2 included) and ReservoirTables, field
+    for field; kernel A's per-facet tables are built from these by
+    ops/megastep.py mega_config.
 """
 
 from __future__ import annotations
@@ -20,24 +26,33 @@ import dataclasses
 import numpy as np
 import torch
 
+from nanokappa_torch.geometry.device import resolve_device
 from nanokappa_torch.sim.state import (
-    X_MODE, X_TAUB, SimState, make_generator,
+    M_COLS, X_MODE, X_TAUB, SimState, make_generator,
 )
 
 
-def state_from_jax(d: dict, device="cpu", seed: int = 0) -> SimState:
-    """The port's SimState from a JAX SimState's arrays. The port's random
-    stream is a torch Generator seeded with `seed` (threefry keys do not
-    carry over)."""
-    packed = np.asarray(d["packed"], np.float32)
-    mirror = np.asarray(d["mirror"], np.float32)
-    pool = np.concatenate([packed.T, mirror[:, [X_MODE, X_TAUB]].T], axis=0)
+def state_from_jax(d: dict, layout: str, device=None, seed: int = 0) -> SimState:
+    """The port's SimState, in `layout` ("slim" | "plain"), from a JAX
+    SimState's arrays (on `device`, the card unless named). The port's
+    random stream is a torch Generator seeded with `seed` (threefry keys do
+    not carry over)."""
+    device = resolve_device(device)
+    packed = np.asarray(d["packed"], np.float32)[:, :16]
+    if layout == "slim":
+        mirror = np.asarray(d["mirror"], np.float32)
+        pool = np.concatenate([packed.T, mirror[:, [X_MODE, X_TAUB]].T], axis=0)
+    elif layout == "plain":
+        pool = packed.T
+    else:
+        raise ValueError(f"unknown pool layout {layout!r}")
 
     def t(name, dtype):
         return torch.as_tensor(np.array(d[name], dtype), device=device)
 
     return SimState(
         pool=torch.as_tensor(np.ascontiguousarray(pool), device=device),
+        layout=layout,
         T_sv=t("T_sv", np.float32),
         Np_sv=t("Np_sv", np.int32),
         T_tau=t("T_tau", np.float32),
@@ -48,15 +63,16 @@ def state_from_jax(d: dict, device="cpu", seed: int = 0) -> SimState:
         res_heat_flux=t("res_heat_flux", np.float32),
         lost=t("lost", np.int32),
         frozen=t("frozen", np.int32),
+        kernel_events=torch.zeros(2, dtype=torch.int64, device=device),
         gen=make_generator(seed, device),
         step=int(np.asarray(d["step"])),
     )
 
 
-def state_to_jax(state: SimState, flip_axis: int) -> dict:
+def state_to_jax(state: SimState, flip_axis: int | None = None) -> dict:
     """A JAX SimState's arrays (without its PRNG key) from the port's state;
     `flip_axis` is the slim gate's wall axis (sim/boundary_tables.py
-    slim_mirror_axis)."""
+    slim_mirror_axis), needed on the slim layout only."""
     from nanokappa_torch.sim.fused import expand_slim_mirror
 
     pool = state.pool
@@ -65,9 +81,14 @@ def state_to_jax(state: SimState, flip_axis: int) -> dict:
     def a(t):
         return t.detach().cpu().numpy()
 
+    if state.layout == "slim":
+        mirror = a(expand_slim_mirror(pool, flip_axis))
+    else:
+        mirror = np.zeros((n, M_COLS), np.float32)
+        mirror[:, X_MODE] = np.full(n, -1, np.int32).view(np.float32)
     return dict(
         packed=np.ascontiguousarray(a(pool[:16]).T),
-        mirror=a(expand_slim_mirror(pool, flip_axis)),
+        mirror=mirror,
         sv_id=a(state.sv_col),
         T_sv=a(state.T_sv),
         Np_sv=a(state.Np_sv),
@@ -87,11 +108,12 @@ def state_to_jax(state: SimState, flip_axis: int) -> dict:
 _STATIC = {"int": int, "float": float, "str": str, "bool": bool}
 
 
-def tables_from_jax(cls, d: dict, device="cpu"):
+def tables_from_jax(cls, d: dict, device=None):
     """An instance of the port's table dataclass `cls` (MaterialTables,
     DeviceGeometry, BoundaryTables, ReservoirTables) from the JAX object's
-    field arrays: torch fields become tensors on `device`, NumPy fields
-    stay NumPy, static fields become Python scalars."""
+    field arrays: torch fields become tensors on `device` (the card unless
+    named), NumPy fields stay NumPy, static fields become Python scalars."""
+    device = resolve_device(device)
     kw = {}
     for f in dataclasses.fields(cls):
         v = d[f.name]

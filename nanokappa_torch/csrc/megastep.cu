@@ -1,45 +1,69 @@
-// Kernel A — the drift megastep on the film's branch: one thread per lane of
-// the (18, N) SoA pool (16 particle rows + the slim-mirror partner mode and
-// lifetime slope), updated in place. Replaces the Pallas kernel
-// nanokappa_tpu/ops/megastep.py (drift_megastep :1067 / _kernel :298) for
-// the box cast, slice subvolumes, nearest temperatures, the slim mirror and
-// row export. Python wrapper, plain twin and the per-lane algorithm:
+// Kernel A — the drift megastep: one thread per lane of the (C, N) SoA pool,
+// updated in place. C = 18 on the "slim" layout (16 particle rows + the
+// slim-mirror partner mode and lifetime slope), 16 on the "plain" layout
+// (full cached lifetimes; rough walls diffuse in-kernel). Replaces the
+// Pallas kernel nanokappa_tpu/ops/megastep.py (drift_megastep :1067 /
+// _kernel :298) for the box and triangle casts (_tri_raycast :244), slice
+// subvolumes, nearest temperatures, the slim mirror, in-kernel diffuse
+// reflection (:382-402, :709-845, :883-888) and the export of pending lanes
+// (:890-944). Python wrapper, plain twin and the per-lane algorithm:
 // nanokappa_torch/ops/megastep.py.
 //
-// Launches: lanes (physics, pool write, pending flags, per-block partial
-// sums) -> scan of the per-block pending counts -> export (pending lanes
-// below ecap copy their rows to their global rank and leave the pool; the
-// clamped rest is binned) -> fixed-order reductions of the partials.
-// Integer rows are read and written as int32/uint32 bits only.
+// Templates: TRI (triangle cast, else the box slab cast) x SLIM (the slim
+// mirror, else the plain layout), so each path pays only for its own
+// registers. The facet table, the triangle table, T_sv and the lifetime
+// grid are staged in shared memory per block; the diffuse tables (diff2,
+// omega_vel, |k|^2, the partner bitmask, the lifetime table) are gathered
+// from global memory (they fit in the 50 MB L2) at a rough-wall hit only.
+//
+// Launches: lanes (physics, pool write, pending flags, per-block counts
+// and partial sums) -> scan of the per-block pending counts -> export
+// (pending lanes below ecap copy their rows and pool index to their global
+// rank and leave the pool; the clamped rest is binned) -> fixed-order
+// reductions of the partials and counts. Integer rows are read and written
+// as int32/uint32 bits only.
 #include <math.h>
 
+#include "hash.cuh"
 #include "scan.cuh"
 
 struct MegaCfg {  // mirrored by _CCfg in ops/megastep.py, field for field
-  int n, sv, sv8, rta_on, flip_axis, slice_axis, ecap;
+  int n, n_rows, tri, sv, sv8, rta_on, flip_axis, slice_axis, ecap;
+  int n_facets, n_tris, rounds, n_modes, n_tau;
+  unsigned int seed;
   float dt, t_ref, hbar, kb, x_ref, lo_b, inv_len, tau_tmin, tau_tmax;
-  int kind[6], box_axis[6];
-  float box_sign[6], box_plane[6], value[6];
-  int res[6];
-  float normal[18], shift[18];
-  int pair[6];
+  const float* facets;     // (n_facets, FT_W) facet table, ints as bits
+  const float* tris;       // (n_tris, TRI_W) [origin, e1, e2, facet bits]
+  const float* diff2;      // (NU, n_modes, 2) [alias prob, alias mode bits]
+  const float* omega_vel;  // (n_modes, 4)
+  const float* k2;         // (n_modes,) |k|^2
+  const int* cmask;        // (n_modes,) bit r: a specular partner at row r
+  const float* tau;        // (n_tau, n_modes) lifetime table
+  const float* tau_T;      // (n_tau,) its temperatures
 };
 
 namespace {
 
 constexpr int C_OMEGA = 6, C_TAU = 7, C_DEV = 8, C_MODE = 9, C_CF = 10,
               C_TCOLL = 11, C_ONF = 12, C_REM = 13, C_ALIVE = 14, C_SV = 15,
-              R_MMODE = 16, R_TAUB = 17, N_ROWS = 18;
+              R_MMODE = 16, R_TAUB = 17;
+// facet-table columns (ops/megastep.py FT_*)
+constexpr int FT_KIND = 0, FT_RES = 1, FT_PAIR = 2, FT_VALUE = 3, FT_NORMAL = 4,
+              FT_SHIFT = 7, FT_AXIS = 10, FT_SIGN = 11, FT_PLANE = 12, FT_ETA = 13,
+              FT_ROW = 14, FT_ROWB = 15, FT_W = 16;
+constexpr int TRI_W = 10;
 constexpr int STALE = -2;
 constexpr int R8 = 8;
 constexpr int MAX_SV = 512;  // slice subvolumes the kernel takes (shared T_sv)
 constexpr int K_ABSORB = 1, K_PERIODIC = 2, K_ROUGH = 3;
 constexpr float REMAIN_EPS = 1e-5f;
 constexpr float T_BACK = -1e-4f;
+constexpr float EPS_DET = 1e-12f;
+constexpr float BARY_TOL = 1e-5f;
 constexpr float X_MAX = 80.0f;
 
-// NaN-propagating min/max/clamp: torch.minimum / torch.maximum /
-// torch.clamp semantics (fminf/fmaxf would drop a NaN)
+// NaN-propagating min/max: torch.minimum / torch.maximum / torch.clamp
+// semantics (fminf/fmaxf would drop a NaN)
 __device__ __forceinline__ float min_p(float a, float b) {
   return (a != a) ? a : ((b != b) ? b : (a < b ? a : b));
 }
@@ -48,6 +72,10 @@ __device__ __forceinline__ float max_p(float a, float b) {
 }
 __device__ __forceinline__ float clamp_max(float x, float hi) { return x > hi ? hi : x; }
 __device__ __forceinline__ float clamp_min(float x, float lo) { return x < lo ? lo : x; }
+// a[k] for a runtime k without a dynamically indexed (local-memory) array
+__device__ __forceinline__ float sel3(const float a[3], int k) {
+  return k == 0 ? a[0] : (k == 1 ? a[1] : a[2]);
+}
 
 // g = n0(T, omega) - n0(T_ref, omega) (ops/kmath.py occupation_delta_T_k)
 __device__ __forceinline__ float occ_delta(float T, float omega, const MegaCfg& c) {
@@ -65,21 +93,22 @@ __device__ __forceinline__ float occ_delta(float T, float omega, const MegaCfg& 
 }
 
 __device__ __forceinline__ int sv_of(const float p[3], const MegaCfg& c) {
-  const int i = (int)((p[c.slice_axis] - c.lo_b) * c.inv_len);  // truncation
+  const int i = (int)((sel3(p, c.slice_axis) - c.lo_b) * c.inv_len);  // truncation
   return i < 0 ? 0 : (i > c.sv - 1 ? c.sv - 1 : i);
 }
 
 // slab cast against the six box walls, skipping facet `exclude`
 __device__ __forceinline__ void box_cast(const float p[3], const float v[3], int exclude,
-                                         const MegaCfg& c, float* t_out, int* f_out) {
+                                         const float* fac, float* t_out, int* f_out) {
   float best_t = INFINITY;
   int best_f = -1;
 #pragma unroll
   for (int f = 0; f < 6; ++f) {
-    const int a = c.box_axis[f];
-    const float va = v[a];
-    const bool toward = va * c.box_sign[f] > 0.0f;
-    const float t_raw = (c.box_plane[f] - p[a]) / (fabsf(va) > 1e-30f ? va : 1e-30f);
+    const float* r = fac + f * FT_W;
+    const int a = __float_as_int(r[FT_AXIS]);
+    const float va = sel3(v, a);
+    const bool toward = va * r[FT_SIGN] > 0.0f;
+    const float t_raw = (r[FT_PLANE] - sel3(p, a)) / (fabsf(va) > 1e-30f ? va : 1e-30f);
     const float t = clamp_min(t_raw, 0.0f);
     if (toward && t_raw > T_BACK && t < best_t && exclude != f) {
       best_t = t;
@@ -90,22 +119,94 @@ __device__ __forceinline__ void box_cast(const float p[3], const float v[3], int
   *f_out = best_f;
 }
 
+// Möller–Trumbore against every triangle (ops/raycast.py tri_cast: the
+// same operations in the same order), skipping facet `exclude`; the
+// nearest valid hit wins, the first triangle on a tie
+__device__ __forceinline__ void tri_cast(const float p[3], const float v[3], int exclude,
+                                         const float* tri, int n_tris, float* t_out,
+                                         int* f_out) {
+  float best_t = INFINITY;
+  int best_f = -1;
+  for (int k = 0; k < n_tris; ++k) {
+    const float* r = tri + k * TRI_W;
+    const float e1x = r[3], e1y = r[4], e1z = r[5];
+    const float e2x = r[6], e2y = r[7], e2z = r[8];
+    const int fid = __float_as_int(r[9]);
+    const float hx = v[1] * e2z - v[2] * e2y;
+    const float hy = v[2] * e2x - v[0] * e2z;
+    const float hz = v[0] * e2y - v[1] * e2x;
+    const float det = (e1x * hx + e1y * hy) + e1z * hz;
+    const bool okd = fabsf(det) > EPS_DET;
+    const float inv = okd ? 1.0f / det : 0.0f;
+    const float sx = p[0] - r[0], sy = p[1] - r[1], sz = p[2] - r[2];
+    const float u = ((sx * hx + sy * hy) + sz * hz) * inv;
+    const float qx = sy * e1z - sz * e1y;
+    const float qy = sz * e1x - sx * e1z;
+    const float qz = sx * e1y - sy * e1x;
+    const float w = ((v[0] * qx + v[1] * qy) + v[2] * qz) * inv;
+    const float t_raw = ((e2x * qx + e2y * qy) + e2z * qz) * inv;
+    const float t = clamp_min(t_raw, 0.0f);
+    if (okd && u >= -BARY_TOL && w >= -BARY_TOL && u + w <= 1.0f + BARY_TOL &&
+        t_raw > T_BACK && exclude != fid && t < best_t) {
+      best_t = t;
+      best_f = fid;
+    }
+  }
+  *t_out = best_t;
+  *f_out = best_f;
+}
+
+template <bool TRI>
+__device__ __forceinline__ void cast(const float p[3], const float v[3], int exclude,
+                                     const float* fac, const float* tri, int n_tris,
+                                     float* t_out, int* f_out) {
+  if (TRI)
+    tri_cast(p, v, exclude, tri, n_tris, t_out, f_out);
+  else
+    box_cast(p, v, exclude, fac, t_out, f_out);
+}
+
+// the lifetime table's T-lerp (sim/scatter.py blend_tau_sv's arithmetic)
+__device__ __forceinline__ float tau_at(float T, int m, const MegaCfg& c, const float* tT) {
+  const int nT = c.n_tau;
+  int cnt = 0;  // searchsorted(tau_T, T, side="left")
+  for (int k = 0; k < nT; ++k) cnt += tT[k] < T ? 1 : 0;
+  const int top = nT - 2 > 0 ? nT - 2 : 0;
+  int i = cnt - 1;
+  i = i < 0 ? 0 : (i > top ? top : i);
+  const int hi = i + 1 > nT - 1 ? nT - 1 : i + 1;
+  float w = (T - tT[i]) / max_p(tT[hi] - tT[i], 1e-30f);
+  w = w < 0.0f ? 0.0f : (w > 1.0f ? 1.0f : w);
+  return c.tau[(size_t)i * c.n_modes + m] * (1.0f - w) +
+         c.tau[(size_t)hi * c.n_modes + m] * w;
+}
+
 __device__ __forceinline__ float e_bin(float omega, float dev, float T, const MegaCfg& c) {
   return (c.hbar * omega) * (dev - occ_delta(T, omega, c));
 }
 
+// blk: per-block counts [pending | alive | diffused | flagged], nb each
+template <bool TRI, bool SLIM>
 __global__ void __launch_bounds__(NK_BLOCK)
 mega_lanes(const MegaCfg c, float* __restrict__ pool, const float* __restrict__ T_sv,
-           uint8_t* __restrict__ pend_flag, int* __restrict__ pend_cnt,
-           int* __restrict__ alive_cnt, float* __restrict__ part_bins,
-           float* __restrict__ part_led) {
+           uint8_t* __restrict__ pend_flag, int* __restrict__ blk,
+           float* __restrict__ part_bins, float* __restrict__ part_led) {
+  extern __shared__ float s_dyn[];
+  float* s_fac = s_dyn;                         // n_facets * FT_W
+  float* s_tri = s_fac + c.n_facets * FT_W;     // n_tris * TRI_W
+  float* s_T = s_tri + c.n_tris * TRI_W;        // sv
+  float* s_tT = s_T + c.sv;                     // n_tau
+  for (int k = threadIdx.x; k < c.n_facets * FT_W; k += NK_BLOCK) s_fac[k] = c.facets[k];
+  for (int k = threadIdx.x; k < c.n_tris * TRI_W; k += NK_BLOCK) s_tri[k] = c.tris[k];
+  for (int k = threadIdx.x; k < c.sv; k += NK_BLOCK) s_T[k] = T_sv[k];
+  for (int k = threadIdx.x; k < c.n_tau; k += NK_BLOCK) s_tT[k] = c.tau_T[k];
+  __syncthreads();
   const int N = c.n;
   const int nb = gridDim.x;
   const int i = blockIdx.x * NK_BLOCK + threadIdx.x;
-  __shared__ float s_T[MAX_SV];  // the subvolume temperatures, per block
-  for (int k = threadIdx.x; k < c.sv; k += NK_BLOCK) s_T[k] = T_sv[k];
-  __syncthreads();
-  bool alive = false, pend = false;
+  const bool dkern = !SLIM && c.n_modes > 0;  // the diffuse tables are present
+  bool alive = false, pend = false, sflag = false;
+  int n_diff = 0;
   int seg_bin = -1, seg_led = -1;
   float bv[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
   float led[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
@@ -114,54 +215,68 @@ mega_lanes(const MegaCfg c, float* __restrict__ pool, const float* __restrict__ 
     auto row = [&](int r) -> float& { return pool[(size_t)r * N + i]; };
     float p[3] = {row(0), row(1), row(2)};
     float v[3] = {row(3), row(4), row(5)};
-    const float omega = row(C_OMEGA);
-    const float tau = row(C_TAU);
+    float omega = row(C_OMEGA);
+    float tau = row(C_TAU);
     float dev = row(C_DEV);
-    uint32_t mode_b = __float_as_uint(row(C_MODE));
+    int mode = __float_as_int(row(C_MODE));
     int cf = __float_as_int(row(C_CF));
     float t_coll = row(C_TCOLL);
     int onf = __float_as_int(row(C_ONF));
     const float rem_col = row(C_REM);
     alive = row(C_ALIVE) > 0.5f;
-    uint32_t m_mode_b = __float_as_uint(row(R_MMODE));
-    const float tau_b = row(R_TAUB);
+    int m_mode = 0;
+    float tau_b = 0.0f;
+    if (SLIM) {
+      m_mode = __float_as_int(row(R_MMODE));
+      tau_b = row(R_TAUB);
+    }
+    // a lane that won its specular draw in an earlier step but was frozen
+    // by the export clamp re-enters flagged, already decided
+    if (dkern && alive && t_coll < -1.5f) {
+      sflag = true;
+      t_coll = 0.0f;
+    }
 
-    // ---- 1. deferred RTA, slope-form lifetime ---------------------------
+    // ---- 1. deferred RTA ----------------------------------------------------
     const int sv = sv_of(p, c);
     float rem = rem_col > REMAIN_EPS ? rem_col : (alive ? 1.0f : 0.0f);
     const float T_p = s_T[sv];
     const float g = occ_delta(T_p, omega, c);
-    const float T_c = T_p < c.tau_tmin ? c.tau_tmin : (T_p > c.tau_tmax ? c.tau_tmax : T_p);
-    const float tau_ev = tau + tau_b * T_c;
+    float tau_ev = tau;
+    if (SLIM) {  // slope-form lifetime
+      const float T_c = T_p < c.tau_tmin ? c.tau_tmin : (T_p > c.tau_tmax ? c.tau_tmax : T_p);
+      tau_ev = tau + tau_b * T_c;
+    }
     const float decay = tau_ev > 0.0f ? expf((-c.dt) / max_p(tau_ev, 1e-12f)) : 0.0f;
     const bool fresh = cf == STALE;
     if (alive && !fresh && c.rta_on) dev = g + (dev - g) * decay;
 
-    // ---- 2. stale-lane ray cast ------------------------------------------
+    // ---- 2. stale-lane ray cast ----------------------------------------------
     if (alive && fresh) {
       float tb;
       int fb;
-      box_cast(p, v, onf, c, &tb, &fb);
+      cast<TRI>(p, v, onf, s_fac, s_tri, c.n_tris, &tb, &fb);
       t_coll = tb / c.dt;
       cf = fb;
     }
 
-    // ---- 3. drift ------------------------------------------------------------
+    // ---- 3. drift --------------------------------------------------------------
     float sf = alive ? min_p(t_coll, rem) : 0.0f;
     sf = sf < 1e30f ? sf : rem;
     for (int k = 0; k < 3; ++k) p[k] = p[k] + v[k] * (c.dt * sf);
     t_coll = t_coll - sf;
     rem = alive ? max_p(rem - sf, 0.0f) : 0.0f;
 
-    // ---- 4. in-kernel absorb / periodic / specular rounds -----------------
-    for (int round = 0; round < 2; ++round) {
+    // ---- 4. in-kernel event rounds ---------------------------------------------
+    for (int round = 0; round < c.rounds; ++round) {
       const bool pd = alive && rem > REMAIN_EPS && cf >= 0 && t_coll <= 1e-9f;
       if (!pd) continue;
-      const int kind = c.kind[cf];
+      const float* fr = s_fac + cf * FT_W;
+      const int kind = __float_as_int(fr[FT_KIND]);
+      const float n[3] = {fr[FT_NORMAL], fr[FT_NORMAL + 1], fr[FT_NORMAL + 2]};
       bool mv = false;
       if (kind == K_ABSORB) {
-        const float* n = c.normal + 3 * cf;
-        const float dn_abs = dev - occ_delta(c.value[cf], omega, c);
+        const float dn_abs = dev - occ_delta(fr[FT_VALUE], omega, c);
         const float e_abs = (c.hbar * omega) * dn_abs;
         const float vdn = (v[0] * n[0] + v[1] * n[1]) + v[2] * n[2];
         const float vmag = sqrtf((v[0] * v[0] + v[1] * v[1]) + v[2] * v[2]);
@@ -172,26 +287,64 @@ mega_lanes(const MegaCfg c, float* __restrict__ pool, const float* __restrict__ 
         led[2] = led[2] + flux_w * v[1];
         led[3] = led[3] + flux_w * v[2];
         led[4] = led[4] + 1.0f;
-        seg_led = c.res[cf];
+        seg_led = __float_as_int(fr[FT_RES]);
         alive = false;
         rem = 0.0f;
       } else if (kind == K_PERIODIC) {
-        for (int k = 0; k < 3; ++k) p[k] = p[k] + c.shift[3 * cf + k];
-        onf = c.pair[cf];
+        for (int k = 0; k < 3; ++k) p[k] = p[k] + fr[FT_SHIFT + k];
+        onf = __float_as_int(fr[FT_PAIR]);
         mv = true;
-      } else if (kind == K_ROUGH && (int)m_mode_b >= 0) {
-        // slim-mirror swap: the partner is the exact crystal mirror
-        v[c.flip_axis] = -v[c.flip_axis];
-        const uint32_t t = mode_b;
-        mode_b = m_mode_b;
-        m_mode_b = t;
-        onf = cf;
-        mv = true;
+      } else if (kind == K_ROUGH) {
+        if (SLIM) {
+          if (m_mode >= 0) {  // slim-mirror swap: the partner is the exact crystal mirror
+            if (c.flip_axis == 0) v[0] = -v[0];
+            else if (c.flip_axis == 1) v[1] = -v[1];
+            else v[2] = -v[2];
+            const int t = mode;
+            mode = m_mode;
+            m_mode = t;
+            onf = cf;
+            mv = true;
+          }
+        } else if (dkern && !sflag) {
+          // the Bernoulli against the Ziman specularity, zero without a
+          // specular partner at this wall's table row
+          const float vdn = (v[0] * n[0] + v[1] * n[1]) + v[2] * n[2];
+          const int r = __float_as_int(vdn < 0.0f ? fr[FT_ROWB] : fr[FT_ROW]);
+          const float eta = fr[FT_ETA];
+          const float v2 = (v[0] * v[0] + v[1] * v[1]) + v[2] * v[2];
+          const float cos2 = (vdn * vdn) / max_p(v2, 1e-30f);
+          float ps = expf((((-4.0f * eta) * eta) * cos2) * c.k2[mode]);
+          if (((c.cmask[mode] >> r) & 1) == 0) ps = 0.0f;
+          const uint32_t lane = (uint32_t)i;
+          if (nk::uniform24(lane, c.seed, round, 0) >= ps) {
+            // diffuse: a new mode by Walker alias over the row's creation
+            // weights, occupation and lifetime at the wall temperature
+            int j = (int)(nk::uniform24(lane, c.seed, round, 1) * (float)c.n_modes);
+            j = j > c.n_modes - 1 ? c.n_modes - 1 : j;
+            const float2 pa = reinterpret_cast<const float2*>(c.diff2)[(size_t)r * c.n_modes + j];
+            const int nm = nk::uniform24(lane, c.seed, round, 2) < pa.x ? j : __float_as_int(pa.y);
+            const float4 ov = reinterpret_cast<const float4*>(c.omega_vel)[nm];
+            const float T_w = s_T[sv_of(p, c)];
+            dev = occ_delta(T_w, ov.x, c);
+            tau = tau_at(T_w, nm, c, s_tT);
+            mode = nm;
+            omega = ov.x;
+            v[0] = ov.y;
+            v[1] = ov.z;
+            v[2] = ov.w;
+            onf = cf;
+            mv = true;
+            ++n_diff;
+          } else {
+            sflag = true;  // specular: exported flagged, decided
+          }
+        }
       }
       if (mv) {
         float tb;
         int fb;
-        box_cast(p, v, onf, c, &tb, &fb);
+        cast<TRI>(p, v, onf, s_fac, s_tri, c.n_tris, &tb, &fb);
         t_coll = tb / c.dt;
         cf = fb;
         float s2 = min_p(t_coll, rem);
@@ -201,23 +354,28 @@ mega_lanes(const MegaCfg c, float* __restrict__ pool, const float* __restrict__ 
         rem = max_p(rem - s2, 0.0f);
       }
     }
+    if (sflag) t_coll = -2.0f;  // the flag rides C_TCOLL out
 
-    // ---- 5/6. pending flag, pool write, sums of the lanes that stay --------
+    // ---- 5/6. pending flag, pool write, sums of the lanes that stay ------------
     pend = alive && rem > REMAIN_EPS && cf >= 0 && t_coll <= 1e-9f;
     const int sv2 = sv_of(p, c);
     for (int k = 0; k < 3; ++k) {
       row(k) = p[k];
       row(3 + k) = v[k];
     }
+    if (!SLIM) {  // a diffuse re-emission changes the mode's properties
+      row(C_OMEGA) = omega;
+      row(C_TAU) = tau;
+    }
     row(C_DEV) = dev;
-    row(C_MODE) = __uint_as_float(mode_b);
+    row(C_MODE) = __int_as_float(mode);
     row(C_CF) = __int_as_float(cf);
     row(C_TCOLL) = t_coll;
     row(C_ONF) = __int_as_float(onf);
     row(C_REM) = rem;
     row(C_ALIVE) = alive ? 1.0f : 0.0f;
     row(C_SV) = __int_as_float(sv2);
-    row(R_MMODE) = __uint_as_float(m_mode_b);
+    if (SLIM) row(R_MMODE) = __int_as_float(m_mode);
     pend_flag[i] = pend ? 1 : 0;
     if (alive && !pend) {
       const float e = e_bin(omega, dev, s_T[sv2], c);
@@ -231,9 +389,13 @@ mega_lanes(const MegaCfg c, float* __restrict__ pool, const float* __restrict__ 
   }
   const int n_pend = __syncthreads_count(pend);
   const int n_alive = __syncthreads_count(alive);
+  const int n_dff = __syncthreads_count(n_diff >= 1) + __syncthreads_count(n_diff >= 2);
+  const int n_flag = __syncthreads_count(pend && sflag);
   if (threadIdx.x == 0) {
-    pend_cnt[blockIdx.x] = n_pend;
-    alive_cnt[blockIdx.x] = n_alive;
+    blk[blockIdx.x] = n_pend;
+    blk[nb + blockIdx.x] = n_alive;
+    blk[2 * nb + blockIdx.x] = n_dff;
+    blk[3 * nb + blockIdx.x] = n_flag;
   }
   nk::block_segment_sums(seg_bin, bv, c.sv8, part_bins, nb);
   if (__syncthreads_count(seg_led >= 0) > 0) {
@@ -247,7 +409,8 @@ mega_lanes(const MegaCfg c, float* __restrict__ pool, const float* __restrict__ 
 __global__ void __launch_bounds__(NK_BLOCK)
 mega_export(const MegaCfg c, float* __restrict__ pool, const float* __restrict__ T_sv,
             const uint8_t* __restrict__ pend_flag, const int* __restrict__ pend_off,
-            float* __restrict__ rows, float* __restrict__ part_frozen) {
+            float* __restrict__ rows, int* __restrict__ idx,
+            float* __restrict__ part_frozen) {
   const int N = c.n;
   const int nb = gridDim.x;
   const int i = blockIdx.x * NK_BLOCK + threadIdx.x;
@@ -268,8 +431,9 @@ mega_export(const MegaCfg c, float* __restrict__ pool, const float* __restrict__
     const uint32_t* src = reinterpret_cast<const uint32_t*>(pool);
     if (g < c.ecap) {  // exported: the row leaves the pool
       uint32_t* dst = reinterpret_cast<uint32_t*>(rows);
-      for (int k = 0; k < N_ROWS; ++k) dst[(size_t)k * c.ecap + g] = src[(size_t)k * N + i];
+      for (int k = 0; k < c.n_rows; ++k) dst[(size_t)k * c.ecap + g] = src[(size_t)k * N + i];
       rows[(size_t)C_ALIVE * c.ecap + g] = 0.0f;
+      idx[g] = i;
       pool[(size_t)C_ALIVE * N + i] = 0.0f;
     } else {  // frozen by the clamp: stays (pending) and is binned here
       const float omega = pool[(size_t)C_OMEGA * N + i];
@@ -284,47 +448,67 @@ mega_export(const MegaCfg c, float* __restrict__ pool, const float* __restrict__
   nk::block_segment_sums(seg, bv, c.sv8, part_frozen, nb);
 }
 
+// block b sums a[b * nb .. b * nb + nb) into out[slot[b]]
 __global__ void __launch_bounds__(NK_BLOCK)
-sum_ints(const int* __restrict__ a, int n, int* __restrict__ out) {
+sum_counts(const int* __restrict__ a, int nb, int* __restrict__ out) {
   __shared__ long long sh[NK_BLOCK];
+  const int* src = a + (size_t)blockIdx.x * nb;
   long long s = 0;
-  for (int j = threadIdx.x; j < n; j += NK_BLOCK) s += a[j];
+  for (int j = threadIdx.x; j < nb; j += NK_BLOCK) s += src[j];
   sh[threadIdx.x] = s;
   __syncthreads();
   for (int w = NK_BLOCK / 2; w > 0; w >>= 1) {
     if (threadIdx.x < w) sh[threadIdx.x] += sh[threadIdx.x + w];
     __syncthreads();
   }
-  if (threadIdx.x == 0) *out = (int)sh[0];
+  // alive -> counts[1], diffused -> counts[3], flagged -> counts[4]
+  if (threadIdx.x == 0) out[blockIdx.x == 0 ? 1 : blockIdx.x + 2] = (int)sh[0];
+}
+
+template <bool TRI, bool SLIM>
+void launch_lanes(const MegaCfg& c, int nb, size_t smem, cudaStream_t s, float* pool,
+                  const float* T, uint8_t* flag, int* blk, float* part_bins,
+                  float* part_led) {
+  mega_lanes<TRI, SLIM><<<nb, NK_BLOCK, smem, s>>>(c, pool, T, flag, blk, part_bins, part_led);
 }
 
 }  // namespace
 
-// scratch_f: nb * (2 * sv8 + 8) * 5 floats; scratch_i: 3 * nb + 4 ints;
-// pend: N bytes (nb = ceil(N / NK_BLOCK)). counts = [pending, alive, kept].
+// scratch_f: nb * (2 * sv8 + 8) * 5 floats; scratch_i: 5 * nb + 4 ints;
+// pend: N bytes (nb = ceil(N / NK_BLOCK)). counts = [pending, alive, kept,
+// diffused, flagged]; idx must arrive filled with N (the lanes past kept).
 extern "C" int nk_megastep(const void* cfg, void* pool, const void* T_sv, void* rows,
-                           void* counts, void* ledger, void* bins, void* scratch_f,
-                           void* scratch_i, void* pend, void* stream) {
+                           void* idx, void* counts, void* ledger, void* bins,
+                           void* scratch_f, void* scratch_i, void* pend, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const MegaCfg c = *static_cast<const MegaCfg*>(cfg);
   const int nb = (c.n + NK_BLOCK - 1) / NK_BLOCK;
-  if (nb == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (nb == 0 || c.sv > MAX_SV || (c.n_rows != 16 && c.n_rows != 18))
+    return static_cast<int>(cudaErrorInvalidValue);
   float* part_bins = static_cast<float*>(scratch_f);
   float* part_frozen = part_bins + (size_t)nb * c.sv8 * 5;
   float* part_led = part_frozen + (size_t)nb * c.sv8 * 5;
-  int* pend_cnt = static_cast<int*>(scratch_i);
-  int* alive_cnt = pend_cnt + nb;
-  int* pend_off = alive_cnt + nb;
+  int* blk = static_cast<int*>(scratch_i);  // pending | alive | diffused | flagged
+  int* pend_off = blk + 4 * nb;
   int* cnt = static_cast<int*>(counts);
   float* p = static_cast<float*>(pool);
   const float* T = static_cast<const float*>(T_sv);
   uint8_t* flag = static_cast<uint8_t*>(pend);
+  const size_t smem =
+      sizeof(float) * ((size_t)c.n_facets * FT_W + (size_t)c.n_tris * TRI_W + c.sv + c.n_tau);
 
-  mega_lanes<<<nb, NK_BLOCK, 0, s>>>(c, p, T, flag, pend_cnt, alive_cnt, part_bins, part_led);
-  nk::scan_counts<<<1, NK_SCAN, 0, s>>>(pend_cnt, nb, pend_off, cnt + 0, c.ecap, cnt + 2);
+  const bool slim = c.n_rows == 18;
+  if (c.tri) {
+    if (slim) launch_lanes<true, true>(c, nb, smem, s, p, T, flag, blk, part_bins, part_led);
+    else launch_lanes<true, false>(c, nb, smem, s, p, T, flag, blk, part_bins, part_led);
+  } else {
+    if (slim) launch_lanes<false, true>(c, nb, smem, s, p, T, flag, blk, part_bins, part_led);
+    else launch_lanes<false, false>(c, nb, smem, s, p, T, flag, blk, part_bins, part_led);
+  }
+  nk::scan_counts<<<1, NK_SCAN, 0, s>>>(blk, nb, pend_off, cnt + 0, c.ecap, cnt + 2);
   mega_export<<<nb, NK_BLOCK, 0, s>>>(c, p, T, flag, pend_off, static_cast<float*>(rows),
-                                      part_frozen);
-  sum_ints<<<1, NK_BLOCK, 0, s>>>(alive_cnt, nb, cnt + 1);
+                                      static_cast<int*>(idx), part_frozen);
+  sum_counts<<<3, NK_BLOCK, 0, s>>>(blk + nb, nb, cnt);
   nk::reduce_partials<<<c.sv8 * 5, NK_BLOCK, 0, s>>>(part_bins, part_frozen, nb,
                                                       static_cast<float*>(bins));
   nk::reduce_partials<<<R8 * 5, NK_BLOCK, 0, s>>>(part_led, nullptr, nb,

@@ -71,7 +71,21 @@ def host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def build_device_geometry(domain: Domain, device="cpu") -> DeviceGeometry:
+def resolve_device(device=None) -> torch.device:
+    """The device a builder puts its tensors on: the CUDA card unless the
+    caller names another one (the CPU tests pass device="cpu"). Without a
+    card and without a device, this raises instead of building on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA card: pass device='cpu' to build on the CPU"
+            )
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def build_device_geometry(domain: Domain, device=None) -> DeviceGeometry:
+    device = resolve_device(device)
     mesh = domain.mesh
     nf = mesh.n_facets
 

@@ -198,9 +198,13 @@ class Material:
 
     # -- device tables ---------------------------------------------------------
 
-    def device_tables(self, device="cpu") -> MaterialTables:
-        """The per-mode tables as float32 torch tensors on `device` (rounded
-        from float64 exactly once, like the JAX package's tables)."""
+    def device_tables(self, device=None) -> MaterialTables:
+        """The per-mode tables as float32 torch tensors on `device` (the
+        card unless named; rounded from float64 exactly once, like the JAX
+        package's tables)."""
+        from nanokappa_torch.geometry.device import resolve_device
+
+        device = resolve_device(device)
         Q, J = self.n_qpoints, self.n_branches
         kvec = np.repeat(self.wavevectors, J, axis=0)  # (M,3), per-mode
         om = self.omega.reshape(-1, 1)

@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels of `nanokappa_torch/csrc`.
 
-All `csrc/*.cu` files compile with `nvcc` into ONE shared library with a plain
-C interface, loaded with ctypes (no PyTorch headers, so the build takes
-seconds). The library is built at first use into `nanokappa_torch/build/`
-and rebuilt whenever the hash of the sources or flags changes.
+Each `csrc/*.cu` file compiles with its own `nvcc`, all started together,
+and the objects link into ONE shared library with a plain C interface,
+loaded with ctypes (no PyTorch headers, so the build takes seconds). The
+library is built at first use into `nanokappa_torch/build/` and rebuilt
+whenever the hash of the sources or flags changes.
 
 Flags: `sm_90a`, `-O3`, no fast math, no flush-to-zero (the pool's integer
 columns are float32 bit patterns that read as denormals), and `--fmad=false`
@@ -30,7 +31,7 @@ BUILD = os.path.join(_PKG, "build")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -40,7 +41,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "nk_compact_indices": [_P, _I, _I, _P, _P, _P, _P],
     "nk_compact_pool": [_P, _P, _I, _I, _P, _P, _P],
-    "nk_megastep": [_P] * 11,
+    "nk_megastep": [_P] * 12,
 }
 
 _LIB = None
@@ -78,17 +79,32 @@ def library(verbose: bool = False) -> ctypes.CDLL:
     so = os.path.join(BUILD, f"libnk_kernels_{h.hexdigest()[:16]}.so")
     if not os.path.exists(so):
         os.makedirs(BUILD, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", tmp, *[s for s in srcs if s.endswith(".cu")]]
+        tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
+        # one nvcc per source, all started together, then one link
+        objs, procs = [], []
+        for src in (s for s in srcs if s.endswith(".cu")):
+            obj = os.path.join(BUILD, f"{os.path.basename(src)}.{tag}.o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", *(["-Xptxas", "-v"] if verbose else []),
+                   "-o", obj, src]
+            objs.append(obj)
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        outs = [(p, *p.communicate()) for p in procs]
+        tmp = f"{so}.{os.getpid()}.tmp"
+        if all(p.returncode == 0 for p, _, _ in outs):
+            link = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs], capture_output=True, text=True
             )
+            outs.append((link, link.stdout, link.stderr))
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+        for p, out, err in outs:
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n{out}\n{err}")
         if verbose:
-            print(res.stderr, flush=True)
+            print("".join(err for _, _, err in outs), flush=True)
         os.replace(tmp, so)
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(so)

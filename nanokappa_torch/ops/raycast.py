@@ -1,5 +1,18 @@
-"""Device ray casting for the axis-aligned box: time of flight to the next
-wall (torch twin of nanokappa_tpu/ops/raycast.py:_raycast_box).
+"""Device ray casting: time of flight to the next boundary.
+
+Torch twin of nanokappa_tpu/ops/raycast.py:
+  * axis-aligned box: per-axis slab arithmetic (`_raycast_box`),
+  * triangle meshes of up to 256 triangles: Möller–Trumbore against every
+    triangle at once (`_raycast_tri`). The JAX package computes this one
+    function twice — unrolled up to UNROLL_MAX = 32 triangles
+    (`_raycast_unrolled`) and as one broadcast chunk up to 256
+    (`_raycast_broadcast`) — because its TPU wants a dense lane dimension;
+    here one (N, F) broadcast serves both, with the nearest valid hit and
+    the first triangle winning a tie, as in either JAX form,
+  * larger meshes need kernel E (ROADMAP queue 2, E) and raise.
+The in-kernel cast of kernel A (csrc/megastep.cu) runs the same arithmetic
+per triangle in the same operation order, so `tri_cast` is also its plain
+twin.
 
 Returns (t_hit in ps [inf if none], facet id [-1 if none]).
 """
@@ -14,6 +27,9 @@ from nanokappa_torch.geometry.device import DeviceGeometry, host
 # land a particle a hair outside a corner, where the only outward-blocking
 # facet is "behind" it by ~1e-3 A.
 _T_BACK = -1e-4  # ps
+_EPS_DET = 1e-12
+_BARY_TOL = 1e-5
+CHUNK_F = 256  # the most triangles one broadcast cast takes
 
 
 def box_tables(geo: DeviceGeometry) -> tuple:
@@ -31,11 +47,15 @@ def box_tables(geo: DeviceGeometry) -> tuple:
 
 
 def raycast(geo: DeviceGeometry, pos, vel, exclude_facet):
-    if not geo.is_box:
+    if geo.is_box:
+        return _raycast_box(geo, pos, vel, exclude_facet)
+    if geo.tri_origin.shape[0] > CHUNK_F:
         raise NotImplementedError(
-            "non-box meshes are not ported yet (ROADMAP queue 1, item 9)"
+            f"meshes of {geo.tri_origin.shape[0]} triangles (> {CHUNK_F}) need "
+            "the large-mesh cast, kernel E, which is not ported yet "
+            "(ROADMAP queue 1, item 11)"
         )
-    return _raycast_box(geo, pos, vel, exclude_facet)
+    return _raycast_tri(geo, pos, vel, exclude_facet)
 
 
 def _raycast_box(geo, pos, vel, exclude_facet):
@@ -54,3 +74,63 @@ def _raycast_box(geo, pos, vel, exclude_facet):
         best_t = torch.where(ok, t, best_t)
         best_f = torch.where(ok, f, best_f)
     return best_t, best_f
+
+
+def tri_table(geo: DeviceGeometry) -> torch.Tensor:
+    """(F, 10) float32 triangle table [origin, e1, e2, facet id bits] on the
+    geometry's device (kernel A stages it in shared memory), cached."""
+    cached = getattr(geo, "_tri_table", None)
+    if cached is None:
+        fac = geo.tri_facet.to(torch.int32).contiguous().view(torch.float32)
+        cached = torch.cat(
+            [geo.tri_origin, geo.tri_e1, geo.tri_e2, fac[:, None]], dim=1
+        ).contiguous()
+        object.__setattr__(geo, "_tri_table", cached)
+    return cached
+
+
+def tri_cast(tri: torch.Tensor, p, v, exclude):
+    """Nearest Möller–Trumbore hit of each ray against the (F, 10) triangle
+    table: p, v are 3 lists of (N,) rows, exclude (N,) i32 a facet id to
+    skip. Barycentric tolerance _BARY_TOL inclusive, hits down to _T_BACK
+    accepted and clamped to 0, |det| <= _EPS_DET rejected; among valid hits
+    the smallest t, the first triangle on a tie. Returns (t (N,), facet
+    (N,) i32)."""
+    cols = [tri[:, k][None, :] for k in range(9)]
+    ax, ay, az, e1x, e1y, e1z, e2x, e2y, e2z = cols
+    fid = tri[:, 9].contiguous().view(torch.int32)
+    px, py, pz = (x[:, None] for x in p)
+    vx, vy, vz = (x[:, None] for x in v)
+    # h = v x e2, q = s x e1 (s = p - origin); the kernel's order exactly
+    hx = vy * e2z - vz * e2y
+    hy = vz * e2x - vx * e2z
+    hz = vx * e2y - vy * e2x
+    det = (e1x * hx + e1y * hy) + e1z * hz
+    okd = det.abs() > _EPS_DET
+    # a true division (torch's `1.0 / t` goes through a reciprocal)
+    inv = torch.where(okd, torch.ones_like(det) / det, 0.0)
+    sx, sy, sz = px - ax, py - ay, pz - az
+    u = ((sx * hx + sy * hy) + sz * hz) * inv
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    w = ((vx * qx + vy * qy) + vz * qz) * inv
+    t_raw = ((e2x * qx + e2y * qy) + e2z * qz) * inv
+    t = torch.clamp(t_raw, min=0.0)
+    ok = (
+        okd & (u >= -_BARY_TOL) & (w >= -_BARY_TOL)
+        & (u + w <= 1.0 + _BARY_TOL) & (t_raw > _T_BACK)
+        & (exclude[:, None] != fid[None, :])
+    )
+    t_ok = torch.where(ok, t, float("inf"))
+    best_t, k = torch.min(t_ok, dim=1)
+    best_f = torch.where(best_t < float("inf"), fid[k], -1)
+    return best_t, best_f
+
+
+def _raycast_tri(geo, pos, vel, exclude_facet):
+    tri = tri_table(geo)
+    return tri_cast(
+        tri, [pos[:, k] for k in range(3)], [vel[:, k] for k in range(3)],
+        exclude_facet,
+    )

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from scipy.spatial import cKDTree
 
-from nanokappa_torch.geometry.device import host
+from nanokappa_torch.geometry.device import host, resolve_device
 from nanokappa_torch.geometry.domain import Domain
 from nanokappa_torch.material.tables import Material, fold_to_fbz
 
@@ -301,7 +301,7 @@ def slim_mirror_axis(geo, btab, mat) -> int | None:
     rows = combined_mirror_rows(btab, mat)
     ok: int | None = None
     if rows is not None:
-        dev = mat if hasattr(mat, "omega_vel") else mat.device_tables()
+        dev = mat if hasattr(mat, "omega_vel") else mat.device_tables("cpu")
         ov = host(dev.omega_vel)  # (M, 4) f32
         tp = host(dev.tau_pair)  # (nTP, M, 2) f32
         corr = rows[:, 1].view(np.int32)
@@ -367,8 +367,9 @@ def build_boundary_tables(
     mat: Material,
     domain: Domain,
     scat_model: str = "velocity",
-    device="cpu",
+    device=None,
 ) -> BoundaryTables:
+    device = resolve_device(device)
     rough = domain.rough_facets
     NR = len(rough)
     M = mat.n_modes

@@ -11,6 +11,9 @@ Torch twin of nanokappa_tpu/sim/cascade.py (`run_event_buffer` :283 and
                `spec2` decision table, occupation conserved) else diffuse
                re-emission at the local wall temperature, drawn by Walker
                alias through `diff2` (classes/Population.py:941-1015).
+               Rows that kernel A exports flagged (C_TCOLL < -1.5) already
+               won their specular Bernoulli in the kernel: round 1 takes
+               that draw as THE draw instead of drawing again.
 Round 1 runs at buffer width; the few survivors are compacted (kernel C,
 ops/compact.py) into a narrow buffer for the remaining rounds.
 
@@ -34,8 +37,8 @@ from nanokappa_torch.sim.bose import occupation_delta_T, occupation_delta_omega
 from nanokappa_torch.sim.boundary_tables import BoundaryTables
 from nanokappa_torch.sim.scatter import blend_tau_sv, lifetime_by_sv
 from nanokappa_torch.sim.state import (
-    C_CF, C_DEV, C_MODE, C_OMEGA, C_ONF, C_POS, C_REM, C_SV, C_TAU, C_VEL,
-    SimParams, as_f32, as_i32,
+    C_CF, C_DEV, C_MODE, C_OMEGA, C_ONF, C_POS, C_REM, C_SV, C_TAU, C_TCOLL,
+    C_VEL, SimParams, as_f32, as_i32,
 )
 
 _REMAIN_EPS = 1e-5  # fraction of dt below which the remaining path is dust
@@ -88,6 +91,8 @@ def run_event_buffer(
     gen: torch.Generator,
     T_sv: torch.Tensor,
     R8: int,
+    evt2_cap: int | None = None,  # width of the rounds-2+ buffer; None ->
+    #   E // 4 (the mirror path's deep-chain sizing)
 ):
     """Lanes enter sitting on facet C_CF with C_REM > 0. Returns
     (rows_out (16, E) with C_ALIVE updated, ledger (R8,5), lost_stuck
@@ -113,14 +118,18 @@ def run_event_buffer(
     )
     tau_sv_blend = blend_tau_sv(mat, T_sv)
 
-    def body(b):
-        return _event_round(b, geo, mat, btab, params, R8, T_sv, tau_sv_blend, gen)
+    def body(b, forced=None):
+        return _event_round(
+            b, geo, mat, btab, params, R8, T_sv, tau_sv_blend, gen, forced
+        )
 
     # ---- round 1 at full buffer width; most events finish here -------------
-    buf1 = body(buf)
+    # forced-specular lanes: kernel A's Bernoulli already decided them (only
+    # round 1 sees flags; later rounds are fresh wall hits)
+    buf1 = body(buf, forced=vbuf & (rows[C_TCOLL] < -1.5))
 
-    # ---- rounds 2+ on a compacted narrow buffer (E // 4 lanes) -------------
-    EVT2 = pad8(max(E // 4, 512))
+    # ---- rounds 2+ on a compacted narrow buffer ------------------------------
+    EVT2 = pad8(max(evt2_cap if evt2_cap is not None else E // 4, 512))
     surv = buf1.pending()
     sidx2, n2 = compact_indices(surv, EVT2)
     frozen2 = surv.sum(dtype=torch.int32) - n2  # overflow: stay alive, frozen
@@ -171,6 +180,8 @@ def _event_round(
     T_sv: torch.Tensor,
     tau_sv_blend: torch.Tensor,
     gen: torch.Generator,
+    forced: torch.Tensor | None = None,  # lanes whose specular Bernoulli
+    #   kernel A already won (round 1 only)
 ) -> _Buf:
     dt = params.dt
     E = b.pos.shape[0]
@@ -233,7 +244,11 @@ def _event_round(
     sc = btab.spec2[row, b.mode.long()]  # (E,2) [specularity, bitcast(corr)]
     p_spec = sc[:, 0]
     corr_m = as_i32(sc[:, 1])
-    spec = ref & (u4[:, 0] <= p_spec) & (corr_m >= 0)
+    bern = u4[:, 0] <= p_spec
+    if forced is not None:
+        # a forced lane without a partner still diffuses (always-diffuse rule)
+        bern = bern | forced
+    spec = ref & bern & (corr_m >= 0)
     diff = ref & ~spec
 
     # diffuse re-emission by Walker alias sampling

@@ -1,19 +1,29 @@
-"""The fused (v2) timestep on the slim specular-mirror path.
+"""The fused (v2) timestep: kernel A's one pass over the pool plus the
+narrow event machinery.
 
-Torch twin of nanokappa_tpu/sim/fused.py `make_step_v2` (:576) for the
-film: an axis-aligned box with slice subvolumes, nearest temperatures,
-pooled reservoirs and eta = 0 (fully specular) rough walls whose
-correspondence is the exact crystal mirror on one axis (the slim gate,
-sim/boundary_tables.py slim_mirror_axis). Reference semantics
-(classes/Population.py:1724-1769 run_timestep) with the JAX package's one
-reordering: the RTA scattering of step k runs at the START of step k+1's
-drift kernel ("deferred RTA"; `make_finalize` applies the pending one).
+Torch twin of nanokappa_tpu/sim/fused.py `make_step_v2` (:576) on slice
+subvolumes with nearest temperatures, `pooled` or `constant` reservoirs,
+on two paths:
+  * the film's slim specular-mirror path: an axis-aligned box whose rough
+    walls are eta = 0 (fully specular) with the exact crystal mirror on one
+    axis as correspondence (the slim gate, sim/boundary_tables.py
+    slim_mirror_axis); the pool is the "slim" 18-row layout,
+  * the mirror-off path, e.g. the nanowire: a box or a mesh of at most
+    TRI_KERNEL_MAX triangles (kernel A casts against the triangles) with
+    rough eta > 0 walls, whose diffuse reflections kernel A draws itself
+    and whose specular winners it exports flagged; the pool is the
+    "plain" 16-row layout with full cached lifetimes.
+Reference semantics (classes/Population.py:1724-1769 run_timestep) with the
+JAX package's one reordering: the RTA scattering of step k runs at the
+START of step k+1's drift kernel ("deferred RTA"; `make_finalize` applies
+the pending one).
 
-Pipeline per step, on the (18, N) pool:
+Pipeline per step:
   1. reservoir injection rows (sim/reservoir.py) append at the pool tail,
   2. kernel A (ops/megastep.py): deferred RTA, stale ray cast, drift,
-     in-kernel absorb/periodic/specular rounds, export of the still-pending
-     rows, subvolume sums of the lanes that stay,
+     in-kernel absorb/periodic/specular (slim) or diffuse (plain) rounds,
+     export of the still-pending rows, subvolume sums of the lanes that
+     stay,
   3. the narrow event machinery (sim/cascade.py) on the exported rows,
   4. its rows are binned and appended at the tail WHOLE (the EVT_CAP window
      advances the tail even where lanes are dead — the runner's compaction
@@ -21,8 +31,8 @@ Pipeline per step, on the (18, N) pool:
   5. an O(SV) postlude inverts T(E).
 
 The tail position is a host integer: injection counts come from the host
-accumulator (sim/reservoir.py pooled_counts), so no step reads the device
-to know where to append.
+accumulators (sim/reservoir.py), so no step reads the device to know where
+to append.
 """
 
 from __future__ import annotations
@@ -44,7 +54,7 @@ from nanokappa_torch.sim.boundary_tables import (
 )
 from nanokappa_torch.sim.cascade import run_event_buffer
 from nanokappa_torch.sim.reservoir import ReservoirTables, sample_injections
-from nanokappa_torch.sim.scatter import rta_scatter, slope_pair
+from nanokappa_torch.sim.scatter import lifetime_by_sv, rta_scatter, slope_pair
 from nanokappa_torch.sim.state import (
     C_ALIVE, C_DEV, C_MODE, C_OMEGA, C_POS, C_SV, C_TAU, C_VEL,
     R_MMODE, R_TAUB, STALE, SimParams, SimState, as_f32, as_i32,
@@ -57,6 +67,16 @@ def _todo(what: str, item: int):
     )
 
 
+TRI_KERNEL_MAX = 128  # triangles kernel A casts against in-kernel
+CMASK_ROWS = 32  # boundary-table rows the per-mode partner bitmask holds
+
+
+def kernel_cast_ok(geo) -> bool:
+    """Can kernel A cast rays itself? Box slab math, or a mesh of at most
+    TRI_KERNEL_MAX triangles (nanokappa_tpu/sim/fused.py:89)."""
+    return geo.is_box or int(geo.tri_origin.shape[0]) <= TRI_KERNEL_MAX
+
+
 def mirror_eligible(geo: DeviceGeometry, btab, params: SimParams, mat=None) -> bool:
     """In-kernel specular fast path: at least one rough facet, every rough
     row sharing ONE correspondence table, specularity exactly 1 wherever a
@@ -67,7 +87,7 @@ def mirror_eligible(geo: DeviceGeometry, btab, params: SimParams, mat=None) -> b
 
     if btab is None or mat is None or int(btab.n_rough) == 0:
         return False
-    if not geo.is_box:
+    if not kernel_cast_ok(geo):
         return False
     spec = _host_table(btab, "specularity")
     corr = _host_table(btab, "corr")
@@ -93,13 +113,37 @@ def mirror_eligible(geo: DeviceGeometry, btab, params: SimParams, mat=None) -> b
     return True
 
 
+def dkern_active(geo, btab, params: SimParams, mat) -> bool:
+    """The in-kernel diffuse gate (nanokappa_tpu/sim/fused.py:96): kernel A
+    casts rays itself, the walls are off the mirror path and some are
+    rough. Kernel A then draws each rough-wall Bernoulli and diffuse mode
+    itself, from the boundary tables; the JAX package's presample pool and
+    its limits (<= 8 table rows, <= 2 lifetime bins) are TPU workarounds
+    that the port does not carry."""
+    return (
+        btab is not None and mat is not None and int(btab.n_rough) > 0
+        and kernel_cast_ok(geo) and not mirror_eligible(geo, btab, params, mat)
+    )
+
+
+def pool_layout(geo, btab, params: SimParams, mat) -> str:
+    """The pool layout the step runs on (sim/state.py): "slim" on the
+    specular-mirror path, "plain" everywhere else."""
+    return "slim" if mirror_eligible(geo, btab, params, mat) else "plain"
+
+
 def require_slice(geo, btab, params: SimParams, mat) -> None:
     """Raise NotImplementedError, naming the ROADMAP item that ports it, for
-    any configuration outside the film slice."""
+    any configuration outside the ported paths: the film (box, eta = 0
+    walls, slim mirror) and the mirror-off path of kernel A (box or mesh of
+    <= TRI_KERNEL_MAX triangles, rough walls diffusing in-kernel)."""
     if params.n_shards != 1:
         raise _todo("particle-axis sharding (multi-GPU)", 12)
-    if not geo.is_box:
-        raise _todo("non-box meshes (kernel A's triangle cast)", 9)
+    if not kernel_cast_ok(geo):
+        raise _todo(
+            f"meshes of more than {TRI_KERNEL_MAX} triangles (kernel_cast off, "
+            "kernel E)", 11,
+        )
     if geo.subvol_type != "slice":
         raise _todo(f"{geo.subvol_type!r} subvolumes", 10)
     if geo.n_subvols > 512:
@@ -108,31 +152,103 @@ def require_slice(geo, btab, params: SimParams, mat) -> None:
         raise _todo(f"temp_interp={params.temp_interp!r}", 10)
     if params.scat_model in ("k", "wavevector", "wave_vector"):
         raise _todo("the k (wavevector) scattering model", 10)
-    if geo.n_reservoirs > 0 and params.res_gen != "pooled":
+    if geo.n_reservoirs > 0 and params.res_gen not in ("pooled", "constant"):
         raise _todo(f"reservoir_gen={params.res_gen!r}", 5)
     if geo.n_reservoirs > 7:
         raise _todo(f"{geo.n_reservoirs} reservoirs (the ledger holds 7)", 10)
-    if not mirror_eligible(geo, btab, params, mat):
-        raise _todo(
-            "rough walls off the specular-mirror path (eta > 0: dkern and "
-            "the non-mirror kernel branch)", 9,
-        )
-    if slim_mirror_axis(geo, btab, mat) is None:
+    if btab is not None and int(btab.n_rows) > CMASK_ROWS:
+        raise _todo(f"{btab.n_rows} rough-wall table rows (> {CMASK_ROWS})", 10)
+    if mirror_eligible(geo, btab, params, mat) and slim_mirror_axis(geo, btab, mat) is None:
         raise _todo("the full 24-row mirror cache", 10)
 
 
-def autosize_evt_cap(N_shard: int) -> int:
-    """Event-buffer width on the mirror path: exports are 3+-bounce chains
-    and no-partner lanes only (~0.013% of N on the film) — N/2048 with a
-    floor (nanokappa_tpu/sim/fused.py:183)."""
-    return max(2048, N_shard // 2048)
+def dkern_facet_tables(geo, btab) -> dict:
+    """Per-FACET tables of the rough-wall branch (nanokappa_tpu/sim/fused.py
+    _dkern_facet_tables :156): eta, front table row, back table row (a
+    two-sided membrane hit against its stored normal uses the back row)."""
+    from nanokappa_torch.geometry.domain import BC
+
+    bc = host(geo.facet_bc)
+    F = len(bc)
+    eta = np.nan_to_num(host(geo.facet_value)).astype(np.float64)
+    row_f = np.zeros(F, np.int64)
+    row_b = np.zeros(F, np.int64)
+    fr = host(geo.facet_rough)
+    row_of = host(btab.row_of_rough)
+    row_back = host(btab.row_back)
+    for f in np.nonzero(bc == int(BC.ROUGH))[0]:
+        row_f[f] = row_of[fr[f]]
+        row_b[f] = row_back[fr[f]]
+    return dict(
+        facet_eta=eta,
+        facet_row=row_f,
+        facet_row_back=row_b,
+        two_sided=bool(np.any(row_f != row_b)),
+    )
 
 
-def event_window(params: SimParams) -> int:
+def autosize_evt_cap(geo, mat, params: SimParams, use_mirror: bool, N_shard: int, btab=None) -> int:
+    """Default event-window width (nanokappa_tpu/sim/fused.py:183), without
+    the JAX package's 128 round-up.
+
+    Mirror path: exports are 3+-bounce chains and no-partner lanes only —
+    N/2048 with a floor. Off it, the width tracks the kinetic rough-wall
+    collision rate A_rough * vbar * dt / (4 V) per particle and step; with
+    in-kernel diffuse reflection only the Bernoulli's specular winners
+    (plus deep chains) export, so the rate is weighted by the largest
+    flux-weighted specular share over the wall rows, + 0.15."""
+    from nanokappa_torch.geometry.domain import BC
+
+    if use_mirror:
+        return max(2048, N_shard // 2048)
+    floor = max(params.inj_cap, N_shard // 64)
+    if geo.n_facets == 0 or float(geo.volume) <= 0:
+        return floor
+    tri_f = host(geo.tri_facet)
+    bc = host(geo.facet_bc)
+    areas = 0.5 * np.linalg.norm(np.cross(host(geo.tri_e1), host(geo.tri_e2)), axis=1)
+    evt_area = float(areas[bc[tri_f] == int(BC.ROUGH)].sum())
+    if evt_area == 0.0:
+        return floor
+    ov = host(mat.omega_vel)
+    act = host(mat.active).astype(bool)
+    v = np.linalg.norm(ov[:, 1:4], axis=1)
+    vbar = float(v[act].mean()) if act.any() else float(v.mean())
+    rate = evt_area * vbar * float(params.dt) / (4.0 * float(geo.volume))
+    if btab is not None and dkern_active(geo, btab, params, mat):
+        spec = btab._host["specularity"]  # (NU, M), zeroed where corr < 0
+        normals = btab._host["u_normals"]  # (NU, 3)
+        v3 = ov[:, 1:4].astype(np.float64)
+        p_max = 0.0
+        for r in range(normals.shape[0]):
+            dest = np.maximum(v3 @ normals[r], 0.0)
+            tot = dest.sum()
+            if tot > 0:
+                p_max = max(p_max, float((dest * spec[r]).sum() / tot))
+        frac = min(1.0, p_max + 0.15)
+        floor = max(params.inj_cap, N_shard // 128)
+        est = int(rate * N_shard * frac)
+        return int(np.clip(est, floor, max(floor, N_shard // 8)))
+    est = int(rate * N_shard)
+    return int(np.clip(est, floor, max(floor, N_shard // 8)))
+
+
+def event_window(geo, mat, btab, params: SimParams) -> int:
     """EVT_CAP, the event window's width: kernel A's export cap and the tail
     advance of every step's append (the runner's compaction cadence in
     sim/step.py is sized from it)."""
-    return params.evt_cap or autosize_evt_cap(params.n_cap)
+    return params.evt_cap or autosize_evt_cap(
+        geo, mat, params, mirror_eligible(geo, btab, params, mat),
+        params.n_cap, btab=btab,
+    )
+
+
+def step_seed(state: SimState) -> int:
+    """The per-step seed of kernel A's in-kernel draws: a host integer from
+    the run's seed and the step (no device read)."""
+    from nanokappa_torch.ops.megastep import lowbias32
+
+    return lowbias32((state.gen.initial_seed() & 0xFFFFFFFF) ^ lowbias32(state.step))
 
 
 def expand_slim_mirror(pool: torch.Tensor, flip_axis: int) -> torch.Tensor:
@@ -182,35 +298,42 @@ def make_step_v2(
 
     require_slice(geo, btab, params, mat)
     device = geo.device
-    flip = slim_mirror_axis(geo, btab, mat)
-    tau_T = host(mat.tau_T)
-    N = params.n_cap
+    layout = pool_layout(geo, btab, params, mat)
+    slim = layout == "slim"
+    flip = slim_mirror_axis(geo, btab, mat) if slim else None
     R = geo.n_reservoirs
     SV = geo.n_subvols
     M = mat.tau.shape[1]
-    EVT_CAP = event_window(params)
-    cfg = mega_config(geo, params, flip, (float(tau_T[0]), float(tau_T[-1])), EVT_CAP)
+    EVT_CAP = event_window(geo, mat, btab, params)
+    cfg = mega_config(geo, mat, btab, params, EVT_CAP, flip)
     SV8 = cfg.sv8
-    # partner-mode bits of every mode (the slim cache's row 16)
-    corr_bits = np.ascontiguousarray(combined_mirror_rows(btab, mat)[:, 1])
-    mtab1 = torch.as_tensor(corr_bits, device=device)
-    if R > 0:
-        # injections read their partner mode from the SAME table row that
-        # gives omega/velocity/tau: [omega, vx, vy, vz, tau, corr bits]
-        ip = host(rtab.inj_props)
-        ext = np.concatenate(
-            [ip, np.broadcast_to(corr_bits[None, :, None], ip.shape[:2] + (1,))],
-            axis=-1,
-        )
-        rtab = replace(rtab, inj_props=torch.as_tensor(ext, device=device))
+    # rounds 2+ of the narrow machinery: the mirror path's buffer is already
+    # the deep-chain tail (E/4); off it first bounces dominate, and with
+    # in-kernel diffuse the buffer is mostly specular lanes that can chain
+    # (nanokappa_tpu/sim/fused.py:971-973)
+    evt2_cap = None if slim else (EVT_CAP // 8 if cfg.dkern else EVT_CAP // 16)
+    if slim:
+        # partner-mode bits of every mode (the slim cache's row 16)
+        corr_bits = np.ascontiguousarray(combined_mirror_rows(btab, mat)[:, 1])
+        mtab1 = torch.as_tensor(corr_bits, device=device)
+        if R > 0:
+            # injections read their partner mode from the SAME table row
+            # that gives omega/velocity/tau: [omega, vx, vy, vz, tau, corr]
+            ip = host(rtab.inj_props)
+            ext = np.concatenate(
+                [ip, np.broadcast_to(corr_bits[None, :, None], ip.shape[:2] + (1,))],
+                axis=-1,
+            )
+            rtab = replace(rtab, inj_props=torch.as_tensor(ext, device=device))
     dens = 1.0 / (mat.n_qpoints * mat.volume_unitcell)
     lane_e = torch.arange(EVT_CAP, device=device)
     lane_i = torch.arange(params.inj_cap, device=device)
 
     def step(state: SimState):
+        if state.layout != layout:
+            raise ValueError(f"the step runs the {layout!r} pool, the state is {state.layout!r}")
         pool = state.pool
         tail = state.tail
-        cap = params.inj_cap
 
         # 1. injection rows appended at the pool tail; with no room for the
         # whole window the batch is dropped and counted
@@ -219,12 +342,13 @@ def make_step_v2(
             rows, n_valid, new_counter, dropped, props = sample_injections(
                 state.res_counter, geo, rtab, params, state.gen
             )
-            mode_inj = torch.clamp(as_i32(rows[C_MODE]), 0, M - 1)
-            sv_inj = subvol_id(geo, rows[C_POS].T)
-            a_inj, b_inj = slope_pair(mat, state.T_sv, sv_inj, mode_inj)
-            rows[C_TAU] = a_inj
-            inj = torch.cat([rows, props[:, 5][None], b_inj[None]])
-            if _append_window(pool, inj, lane_i < n_valid, tail):
+            if slim:
+                mode_inj = torch.clamp(as_i32(rows[C_MODE]), 0, M - 1)
+                sv_inj = subvol_id(geo, rows[C_POS].T)
+                a_inj, b_inj = slope_pair(mat, state.T_sv, sv_inj, mode_inj)
+                rows[C_TAU] = a_inj
+                rows = torch.cat([rows, props[:, 5][None], b_inj[None]])
+            if _append_window(pool, rows, lane_i < n_valid, tail):
                 tail += n_valid
                 lost_inj = dropped
             else:
@@ -232,15 +356,16 @@ def make_step_v2(
             state.res_counter = new_counter
 
         # 2. kernel A: one pass over the pool
-        rows_x, counts, kledger, kbins = drift_megastep(
-            pool, state.T_sv, state.step > 0, cfg
+        rows_x, _, counts, kledger, kbins = drift_megastep(
+            pool, state.T_sv, state.step > 0, cfg, seed=step_seed(state)
         )
         frozen_k = counts[0] - counts[2]
 
         # 3. the narrow machinery on the exported rows
         vbuf = lane_e < counts[2]
         rows_out, mledger, lost_stuck, lost_def, frozen2 = run_event_buffer(
-            rows_x[:16], vbuf, geo, mat, btab, params, state.gen, state.T_sv, R8
+            rows_x[:16], vbuf, geo, mat, btab, params, state.gen, state.T_sv,
+            R8, evt2_cap=evt2_cap,
         )
 
         # 4. bin the event rows (their end-of-step state); with the kernel's
@@ -260,11 +385,13 @@ def make_step_v2(
         # 5. the event rows append at the tail, uncompacted (the window
         # advances the tail by EVT_CAP; dead lanes keep the window's rows)
         rows_out[C_SV] = as_f32(sv_e)
-        mode_e = torch.clamp(as_i32(rows_out[C_MODE]), 0, M - 1)
-        a_e, b_e = slope_pair(mat, state.T_sv, sv_e, mode_e)
-        rows_out[C_TAU] = torch.where(alive_e, a_e, rows_out[C_TAU])
-        app = torch.cat([rows_out, mtab1[mode_e.long()][None], b_e[None]])
-        if _append_window(pool, app, alive_e, tail):
+        if slim:
+            # slope form: the intercepts (and slopes) of the lanes' modes
+            mode_e = torch.clamp(as_i32(rows_out[C_MODE]), 0, M - 1)
+            a_e, b_e = slope_pair(mat, state.T_sv, sv_e, mode_e)
+            rows_out[C_TAU] = torch.where(alive_e, a_e, rows_out[C_TAU])
+            rows_out = torch.cat([rows_out, mtab1[mode_e.long()][None], b_e[None]])
+        if _append_window(pool, rows_out, alive_e, tail):
             tail += EVT_CAP
             lost3 = torch.zeros((), dtype=torch.int32, device=device)
         else:
@@ -300,6 +427,7 @@ def make_step_v2(
             [lost3 + lost_inj, lost_stuck, lost_def]
         ).to(torch.int32)
         state.frozen = state.frozen + (frozen_k + frozen2).to(torch.int32)
+        state.kernel_events = state.kernel_events + counts[3:5]
         state.step += 1
         out = StepOutputs(
             T_sv=T_new,
@@ -321,17 +449,22 @@ def make_step_v2(
 
 
 def refresh_tau_T(state: SimState, geo, mat, params) -> SimState:
-    """Rebuild the slope-form lifetime pairs (a, b) for the subvolumes'
-    CURRENT T-grid bins (the partner's pair equals the main mode's under
-    the slim gate, so one refresh serves both)."""
+    """Refresh the cached lifetimes of the alive lanes at the subvolumes'
+    CURRENT temperatures (nanokappa_tpu/sim/fused.py refresh_tau_T): on the
+    slim layout the slope-form pairs (a, b) of the T-grid bins (the
+    partner's pair equals the main mode's under the slim gate, so one
+    refresh serves both); on the plain layout the full lifetime
+    (nanokappa_tpu/sim/step.py refresh_tau :513)."""
     pool = state.pool
     alive = state.alive
     sv = subvol_id(geo, pool[C_POS].T)
-    a, b = slope_pair(
-        mat, state.T_sv, sv, torch.clamp(state.mode, 0, mat.tau.shape[1] - 1)
-    )
-    pool[C_TAU] = torch.where(alive, a, pool[C_TAU])
-    pool[R_TAUB] = torch.where(alive, b, pool[R_TAUB])
+    mode = torch.clamp(state.mode, 0, mat.tau.shape[1] - 1)
+    if state.layout == "slim":
+        a, b = slope_pair(mat, state.T_sv, sv, mode)
+        pool[C_TAU] = torch.where(alive, a, pool[C_TAU])
+        pool[R_TAUB] = torch.where(alive, b, pool[R_TAUB])
+    else:
+        pool[C_TAU] = torch.where(alive, lifetime_by_sv(mat, state.T_sv, sv, mode), pool[C_TAU])
     return state
 
 
@@ -339,8 +472,8 @@ def make_finalize(geo, mat, params):
     """Apply the PENDING deferred RTA so written particle data matches the
     reference's end-of-step state; returns a finalised copy (the running
     state stays un-finalised — the next drift kernel applies it there).
-    Lifetimes are always the slope form tau = a + b*T: C_TAU holds a and
-    row 17 holds b."""
+    On the slim layout the lifetime is the slope form tau = a + b*T (C_TAU
+    holds a, row 17 holds b); on the plain layout C_TAU is the lifetime."""
     tau_T = host(mat.tau_T)
     t_lo, t_hi = float(tau_T[0]), float(tau_T[-1])
 
@@ -349,7 +482,9 @@ def make_finalize(geo, mat, params):
             geo, state.T_sv, state.pos, state.sv_col, params.temp_interp
         )
         ok = state.alive & (state.coll_facet != STALE) & (state.step > 0)
-        tau = state.tau + state.pool[R_TAUB] * torch.clamp(T_p, t_lo, t_hi)
+        tau = state.tau
+        if state.layout == "slim":
+            tau = tau + state.pool[R_TAUB] * torch.clamp(T_p, t_lo, t_hi)
         dev = rta_scatter(
             mat, state.dev, state.mode, state.omega, T_p, ok,
             params.dt, params.t_reference, tau=tau,
@@ -359,4 +494,3 @@ def make_finalize(geo, mat, params):
         return replace(state, pool=pool)
 
     return finalize
-

@@ -6,13 +6,23 @@ Host side precomputes per-(reservoir, mode) entry probabilities
     enter_prob[r, m] = max(v_m . (-n_r), 0) * dt / bound_thickness_r,
     bound_thickness_r = N_active_modes / (particle_density * A_r).
 
-The device side is the 'pooled' generation scheme of the JAX package
-(nanokappa_tpu/sim/reservoir.py sample_injections): a scalar fractional
-accumulator per reservoir fixes each step's count, modes come from the
-Walker alias table of enter_prob, arrival times and wall positions are
-uniform. The accumulator is float32 NumPy on the host — the same float32
-arithmetic as the JAX package's device array — so the per-step counts, and
-with them the pool's tail arithmetic, are known without a device sync.
+Two of the JAX package's generation schemes (nanokappa_tpu/sim/reservoir.py
+sample_injections):
+  * 'pooled': a scalar fractional accumulator per reservoir fixes each
+    step's count, modes come from the Walker alias table of enter_prob,
+    arrival times are uniform;
+  * 'constant' (classes/Population.py:358-367): floor(enter_prob) copies of
+    every (reservoir, mode) plus one more whenever its fractional
+    accumulator crosses 1. The copies are the occupied lanes of a
+    (c_max, R*M) lattice, packed to the front by kernel C (ops/compact.py)
+    in lattice order; each copy's arrival time is its fraction of the step
+    (the accumulator for copy 0, a uniform draw for the others).
+Injected particles sit uniformly on their reservoir facet: a box wall is a
+rectangle, any other facet a triangle picked by area and a folded
+barycentric draw. The accumulators are float32 NumPy on the host — the same
+float32 arithmetic as the JAX package's device arrays — so the per-step
+counts, and with them the pool's tail arithmetic, are known without a
+device sync.
 """
 
 from __future__ import annotations
@@ -22,7 +32,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from nanokappa_torch.geometry.device import DeviceGeometry, host
+from nanokappa_torch.geometry.device import DeviceGeometry, host, resolve_device
 from nanokappa_torch.geometry.domain import Domain
 from nanokappa_torch.material.tables import Material
 from nanokappa_torch.sim.bose import occupation_delta_T
@@ -43,6 +53,16 @@ class ReservoirTables:
     n_reservoirs: int = field(metadata=dict(static=True))
 
     @property
+    def enter_prob_host(self) -> np.ndarray:
+        """(R, M) float32 entry probabilities on the host (the 'constant'
+        accumulator's increment), cached like `lambda_host`."""
+        cached = getattr(self, "_enter_prob_host", None)
+        if cached is None:
+            cached = self.enter_prob.detach().cpu().numpy()
+            object.__setattr__(self, "_enter_prob_host", cached)
+        return cached
+
+    @property
     def lambda_host(self) -> np.ndarray:
         """(R,) float32 entry rates on the host (the pooled accumulator's
         increment), cached so a step never reads them back from the device."""
@@ -58,8 +78,10 @@ def build_reservoir_tables(
     domain: Domain,
     dt: float,
     particle_density: float,
-    device="cpu",
+    device=None,
 ) -> ReservoirTables:
+    device = resolve_device(device)
+
     def f32(x):
         return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
 
@@ -149,6 +171,73 @@ def pooled_counts(res_counter: np.ndarray, rtab: ReservoirTables, n_shards: int)
     return n_r.astype(np.int64), new_counter
 
 
+def constant_counts(res_counter: np.ndarray, rtab: ReservoirTables, n_shards: int, c_max: int):
+    """One step of the 'constant' scheme's per-(reservoir, mode) fractional
+    accumulator, on the host in float32.
+
+    Returns (counts (R*M,) int32 copies of each (reservoir, mode), the
+    number of them the (c_max, R*M) lattice cannot hold, new res_counter)."""
+    ep = rtab.enter_prob_host / np.float32(n_shards)
+    fixed = np.floor(ep)
+    counter = res_counter[0] + (ep - fixed)
+    extra = (counter >= np.float32(1.0)).astype(np.float32)
+    new_counter = (counter - extra)[None]
+    counts = (fixed + extra).astype(np.int32).reshape(-1)
+    clipped = int(np.maximum(counts - c_max, 0).sum())
+    return counts, clipped, new_counter
+
+
+def _constant_lattice(res_counter, rtab: ReservoirTables, params: SimParams, gen, dev):
+    """The 'constant' scheme's draws: (inj_res, inj_mode, inj_dtin (cap,)
+    in lattice order, n_valid, dropped, new res_counter). Lattice lane
+    l = c * R*M + rm holds copy c of (reservoir, mode) rm."""
+    from nanokappa_torch.ops.compact import compact_indices
+
+    R, M = rtab.enter_prob.shape
+    RM = R * M
+    cap, c_max, dt = params.inj_cap, params.c_max, params.dt
+    counts, clipped, new_counter = constant_counts(res_counter, rtab, params.n_shards, c_max)
+    total = int(counts.sum()) - clipped
+    n_valid = min(total, cap)
+    dropped = max(total - n_valid, 0) + clipped
+
+    ep = rtab.enter_prob.reshape(-1) / params.n_shards
+    counts_d = torch.as_tensor(counts, device=dev)
+    counter_d = torch.as_tensor(new_counter.reshape(-1), device=dev)
+    # fractional arrival times: copy 0 from the accumulator, copy c >= 1 at
+    # (c + u) / enter_prob
+    u = torch.rand((c_max, RM), generator=gen, device=dev)
+    c_lat = torch.arange(c_max, dtype=torch.float32, device=dev)[:, None]
+    frac_lat = torch.where(ep[None] > 0, (c_lat + u) / ep[None], 0.0)
+    frac_lat[0] = torch.where(ep > 0, counter_d / ep, 0.0)
+    lat_valid = counts_d[None, :] > torch.arange(c_max, device=dev)[:, None]
+    order, _ = compact_indices(lat_valid.reshape(-1), cap)
+    order = order.long()
+    rm = torch.clamp(order % RM, max=RM - 1)
+    frac = frac_lat.reshape(-1)[torch.clamp(order, max=c_max * RM - 1)]
+    inj_dtin = torch.clamp(dt * (1.0 - frac), 0.0, dt)
+    return rm // M, rm % M, inj_dtin, n_valid, dropped, new_counter
+
+
+def _facet_positions(geo: DeviceGeometry, inj_res, gen, cap: int, dev, u2=None):
+    """Uniform positions on each lane's reservoir facet: a box wall as a
+    rectangle (at the uniforms `u2` when given), any other facet by an
+    area-CDF triangle pick and a folded barycentric draw
+    (nanokappa_tpu/sim/reservoir.py:336-369)."""
+    if geo.is_box and geo.res_rect.shape[0] == geo.n_reservoirs:
+        if u2 is None:
+            u2 = torch.rand((cap, 2), generator=gen, device=dev)
+        rect = geo.res_rect[inj_res]  # (cap,9)
+        return rect[:, 0:3] + u2[:, :1] * rect[:, 3:6] + u2[:, 1:2] * rect[:, 6:9]
+    ut = torch.rand(cap, generator=gen, device=dev)
+    cdf = geo.res_tri_cdf[inj_res]  # (cap, K): K triangles per facet
+    k = torch.clamp((cdf < ut[:, None]).sum(dim=1), max=geo.res_tri_cdf.shape[1] - 1)
+    tri = geo.res_tri_idx[inj_res, k].long()
+    b = torch.rand((cap, 2), generator=gen, device=dev)
+    b = torch.where((b.sum(dim=1) > 1.0)[:, None], 1.0 - b, b)
+    return geo.tri_origin[tri] + b[:, :1] * geo.tri_e1[tri] + b[:, 1:] * geo.tri_e2[tri]
+
+
 def sample_injections(
     res_counter: np.ndarray,
     geo: DeviceGeometry,
@@ -162,42 +251,48 @@ def sample_injections(
     n_valid (host int); new res_counter; dropped (host int); props
     (cap, K) — the gathered per-(reservoir, mode) injection-table rows, so
     the caller can reuse trailing columns of an extended table)."""
-    if params.res_gen != "pooled":
+    from nanokappa_torch.ops.compact import compact_indices
+
+    if params.res_gen not in ("pooled", "constant"):
         raise NotImplementedError(
             f"reservoir_gen={params.res_gen!r} is not ported yet "
-            "(ROADMAP queue 1, item 5: constant/fixed_rate/one_to_one)"
-        )
-    if not (geo.is_box and geo.res_rect.shape[0] == rtab.n_reservoirs):
-        raise NotImplementedError(
-            "reservoir walls of non-box meshes are not ported yet "
-            "(ROADMAP queue 1, item 9)"
+            "(ROADMAP queue 1, item 5: fixed_rate/one_to_one)"
         )
     R, M_tab = rtab.enter_alias.shape[:2]
     cap = params.inj_cap
     dev = geo.device
     dt = params.dt
 
-    n_r, new_counter = pooled_counts(res_counter, rtab, params.n_shards)
-    boundaries = np.cumsum(n_r)
-    total = int(boundaries[-1])
-    n_valid = min(total, cap)
-    dropped = max(total - n_valid, 0)
+    if params.res_gen == "pooled":
+        n_r, new_counter = pooled_counts(res_counter, rtab, params.n_shards)
+        boundaries = np.cumsum(n_r)
+        total = int(boundaries[-1])
+        n_valid = min(total, cap)
+        dropped = max(total - n_valid, 0)
 
-    lane = torch.arange(cap, dtype=torch.int32, device=dev)
-    # searchsorted(boundaries, lane, side='right') clamped to R-1, from the
-    # host boundaries as scalars (no host-to-device copy)
-    inj_res = torch.zeros(cap, dtype=torch.int64, device=dev)
-    for r in range(R - 1):
-        inj_res += lane >= int(boundaries[r])
-    u5 = torch.rand((cap, 5), generator=gen, device=dev)
-    jdraw = torch.clamp((u5[:, 0] * M_tab).to(torch.int32), max=M_tab - 1)
-    pa = rtab.enter_alias[inj_res, jdraw.long()]  # (cap,2): one row gather
-    accept = u5[:, 1] < pa[:, 0]
-    inj_mode = torch.where(accept, jdraw, pa[:, 1].contiguous().view(torch.int32))
-    inj_dtin = dt * u5[:, 2]
-    u2 = u5[:, 3:5]
-    rect = geo.res_rect[inj_res]  # (cap,9)
-    inj_pos = rect[:, 0:3] + u2[:, :1] * rect[:, 3:6] + u2[:, 1:2] * rect[:, 6:9]
+        lane = torch.arange(cap, dtype=torch.int32, device=dev)
+        # searchsorted(boundaries, lane, side='right') clamped to R-1, from
+        # the host boundaries as scalars (no host-to-device copy)
+        inj_res = torch.zeros(cap, dtype=torch.int64, device=dev)
+        for r in range(R - 1):
+            inj_res += lane >= int(boundaries[r])
+        u5 = torch.rand((cap, 5), generator=gen, device=dev)
+        jdraw = torch.clamp((u5[:, 0] * M_tab).to(torch.int32), max=M_tab - 1)
+        pa = rtab.enter_alias[inj_res, jdraw.long()]  # (cap,2): one row gather
+        accept = u5[:, 1] < pa[:, 0]
+        inj_mode = torch.where(accept, jdraw, pa[:, 1].contiguous().view(torch.int32))
+        inj_dtin = dt * u5[:, 2]
+        inj_pos = _facet_positions(geo, inj_res, gen, cap, dev, u2=u5[:, 3:5])
+    else:
+        inj_res, inj_mode, inj_dtin, n_valid, dropped, new_counter = _constant_lattice(
+            res_counter, rtab, params, gen, dev
+        )
+        # valid lanes to the front (the lattice compaction already packed
+        # them: on this scheme the re-compaction is the identity)
+        order, _ = compact_indices(torch.arange(cap, device=dev) < n_valid, cap)
+        order = torch.clamp(order, max=cap - 1).long()
+        inj_res, inj_mode, inj_dtin = inj_res[order], inj_mode[order], inj_dtin[order]
+        inj_pos = _facet_positions(geo, inj_res, gen, cap, dev)
 
     T_res = geo.res_temperature[inj_res]
     props = rtab.inj_props[inj_res, inj_mode.long()]  # (cap,K)

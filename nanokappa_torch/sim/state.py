@@ -1,12 +1,22 @@
-"""Simulation state: the particle pool as one (18, N) float32 SoA tensor.
+"""Simulation state: the particle pool as one (C, N) float32 SoA tensor.
 
 The JAX package carries a packed (N, 16) row matrix plus an (N, 8)
 specular-mirror side pool (nanokappa_tpu/sim/state.py). The port keeps the
-same column indices as pool ROWS and, on the film's slim-mirror path, only
-the two mirror columns the step reads: row 16 = partner mode id (X_MODE),
-row 17 = the lifetime slope b (X_TAUB). Integer columns are int32 bitcast
-into the float32 rows (`as_i32` / `as_f32`); small ids read as denormals and
-STALE = -2 as a NaN payload, so they only ever move bit-for-bit.
+same column indices as pool ROWS, in one of two layouts named by the state's
+`layout` tag:
+  * "slim" (18 rows), the in-kernel specular-mirror path of eta = 0 walls
+    (sim/fused.py mirror_eligible, slim gate): rows 16-17 are the only two
+    mirror columns the step reads, row 16 = partner mode id (X_MODE) and
+    row 17 = the lifetime slope b (X_TAUB); C_TAU holds the intercept a of
+    tau(T) = a + b*T on the particle's temperature-grid bin;
+  * "plain" (16 rows), every other path, e.g. rough eta > 0 walls with
+    in-kernel diffuse reflection: the particle rows only, and C_TAU holds
+    the full cached lifetime tau(T_local, mode), refreshed when a subvolume
+    temperature drifts by more than params.tau_dT (the JAX package's
+    mirror-off path, nanokappa_tpu/ops/megastep.py:537-544).
+Integer columns are int32 bitcast into the float32 rows (`as_i32` /
+`as_f32`); small ids read as denormals and STALE = -2 as a NaN payload, so
+they only ever move bit-for-bit.
 
 Host-side construction (`init_state`) is the JAX package's NumPy code, so the
 same seed gives the same initial particles in both packages.
@@ -47,6 +57,8 @@ class SimParams:
     t_reference: float = 300.0
     evt_cap: int = 0  # event-buffer width (0 = autosize)
     n_shards: int = 1
+    tau_dT: float = 0.25  # K of subvolume-temperature drift that triggers
+    #   the cached-lifetime refresh on the plain layout
 
 
 # pool rows (the JAX package's packed columns, sim/state.py:72-107)
@@ -73,10 +85,10 @@ X_TAUB = 6
 X_MTAUB = 7
 M_COLS = 8
 
-# the slim-mirror rows of the port's pool
+# the slim-mirror rows of the port's pool ("slim" layout only)
 R_MMODE = 16  # = X_MODE
 R_TAUB = 17  # = X_TAUB
-N_ROWS = 18
+LAYOUT_ROWS = {"slim": 18, "plain": 16}
 
 # the JAX package rounds pool capacities to its Pallas tile width
 # (nanokappa_tpu/ops/megastep.py BN); the port keeps the same capacities so
@@ -96,7 +108,8 @@ def as_f32(x: torch.Tensor) -> torch.Tensor:
 
 @dataclass
 class SimState:
-    pool: torch.Tensor  # (18, N) f32; see the row map above
+    pool: torch.Tensor  # (LAYOUT_ROWS[layout], N) f32; see the row map above
+    layout: str  # "slim" | "plain", see the module docstring
     T_sv: torch.Tensor  # (SV,) f32 subvolume temperatures
     Np_sv: torch.Tensor  # (SV,) i32
     T_tau: torch.Tensor  # (SV,) f32 temperatures at the last lifetime refresh
@@ -108,6 +121,8 @@ class SimState:
     res_heat_flux: torch.Tensor  # (R,3) f32 ledger
     lost: torch.Tensor  # (3,) i32 [capacity drops, k_max-stuck, defective]
     frozen: torch.Tensor  # () i32 postponed-but-alive events (cumulative)
+    kernel_events: torch.Tensor  # (2,) i64 kernel A's in-kernel diffuse
+    #   re-emissions and flagged specular exports (cumulative)
     gen: torch.Generator = field(repr=False)  # the run's random stream
     step: int = 0
 
@@ -255,13 +270,15 @@ def init_state(
     occupation: np.ndarray | None = None,
 ) -> SimState:
     """The initial pool, built on the host exactly as the JAX package's
-    init_state builds it (same NumPy draws in the same order), with the
-    slim-mirror cache and slope-form lifetimes filled, then moved to the
-    geometry's device and given its first ray cast."""
+    init_state builds it (same NumPy draws in the same order), in the layout
+    the step runs (sim/fused.py pool_layout): on "slim" with the mirror
+    partner and slope-form lifetimes, on "plain" with full lifetimes. Then
+    moved to the geometry's device and given its first ray cast."""
     from nanokappa_torch.sim.boundary_tables import combined_mirror_rows
-    from nanokappa_torch.sim.fused import require_slice
+    from nanokappa_torch.sim.fused import pool_layout, require_slice
 
     require_slice(geo, btab, params, mat)
+    layout = pool_layout(geo, btab, params, mat)
     rng = np.random.default_rng(seed)
     n_cap = params.n_cap
     R = geo.n_reservoirs
@@ -303,21 +320,33 @@ def init_state(
     ti = np.clip(np.searchsorted(mat.tau_T, T_p) - 1, 0, len(mat.tau_T) - 2)
     tau_flat = mat.tau.reshape(len(mat.tau_T), -1)
 
-    # slim specular-mirror cache: partner mode + slope-form lifetime pair
-    # (the partner's lifetime bits equal the main mode's under the slim gate)
-    cm = combined_mirror_rows(btab, mat)[:, 1].view(np.int32)[modes]
-    dTb = np.maximum(mat.tau_T[ti + 1] - mat.tau_T[ti], 1e-30)
-    ok = mat.tau_T[ti + 1] > mat.tau_T[ti]
-    b_main = np.where(
-        ok, (tau_flat[ti + 1, modes] - tau_flat[ti, modes]) / dTb, 0.0
-    )
-    a_main = tau_flat[ti, modes] - b_main * mat.tau_T[ti]
+    pool = np.zeros((LAYOUT_ROWS[layout], n_cap), dtype=np.float32)
+    if layout == "slim":
+        # slim specular-mirror cache: partner mode + slope-form lifetime
+        # pair (the partner's lifetime bits equal the main mode's under the
+        # slim gate); C_TAU holds the intercept
+        cm = combined_mirror_rows(btab, mat)[:, 1].view(np.int32)[modes]
+        dTb = np.maximum(mat.tau_T[ti + 1] - mat.tau_T[ti], 1e-30)
+        ok = mat.tau_T[ti + 1] > mat.tau_T[ti]
+        b_main = np.where(
+            ok, (tau_flat[ti + 1, modes] - tau_flat[ti, modes]) / dTb, 0.0
+        )
+        tau_p = tau_flat[ti, modes] - b_main * mat.tau_T[ti]
+        m_mode = np.full(n_cap, -1, np.int32)
+        m_mode[slots] = cm
+        pool[R_MMODE] = m_mode.view(np.float32)
+        pool[R_TAUB] = full(b_main.astype(np.float32), 0.0)
+    else:
+        # the full lifetime at the particle's temperature
+        wt = np.clip(
+            (T_p - mat.tau_T[ti]) / (mat.tau_T[ti + 1] - mat.tau_T[ti]), 0.0, 1.0
+        )
+        tau_p = (1 - wt) * tau_flat[ti, modes] + wt * tau_flat[ti + 1, modes]
 
-    pool = np.zeros((N_ROWS, n_cap), dtype=np.float32)
     pool[C_POS] = full(positions.astype(np.float32), 0.0).T
     pool[C_VEL] = full(vel_p.astype(np.float32), 0.0).T
     pool[C_OMEGA] = full(omega_p.astype(np.float32), 0.0)
-    pool[C_TAU] = full(a_main.astype(np.float32), 0.0)
+    pool[C_TAU] = full(tau_p.astype(np.float32), 0.0)
     pool[C_DEV] = full(dev.astype(np.float32), 0.0)
     pool[C_MODE] = full(modes.astype(np.int32), 0).view(np.float32)
     pool[C_CF] = np.full(n_cap, STALE, np.int32).view(np.float32)
@@ -326,14 +355,11 @@ def init_state(
     pool[C_REM] = 0.0
     pool[C_ALIVE] = alive.astype(np.float32)
     pool[C_SV] = full(sv.astype(np.int32), 0).view(np.float32)
-    m_mode = np.full(n_cap, -1, np.int32)
-    m_mode[slots] = cm
-    pool[R_MMODE] = m_mode.view(np.float32)
-    pool[R_TAUB] = full(b_main.astype(np.float32), 0.0)
 
     device = geo.device
     state = SimState(
         pool=torch.as_tensor(pool, device=device),
+        layout=layout,
         T_sv=torch.as_tensor(T_sv.astype(np.float32), device=device),
         Np_sv=torch.as_tensor(
             np.bincount(sv, minlength=SV).astype(np.int32), device=device
@@ -347,6 +373,7 @@ def init_state(
         res_heat_flux=torch.zeros((R, 3), dtype=torch.float32, device=device),
         lost=torch.zeros(3, dtype=torch.int32, device=device),
         frozen=torch.zeros((), dtype=torch.int32, device=device),
+        kernel_events=torch.zeros(2, dtype=torch.int64, device=device),
         gen=make_generator(seed, device),
         step=0,
     )

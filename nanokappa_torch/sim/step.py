@@ -1,4 +1,4 @@
-"""The multi-step runner around the fused film step.
+"""The multi-step runner around the fused step.
 
 Torch twin of nanokappa_tpu/sim/step.py `build_step` (:269, v2 branch) and
 `make_v2_block_runner` (:347): n_outer blocks of n_inner steps, a lifetime
@@ -48,15 +48,16 @@ def build_step(geo, mat, btab, rtab, params: SimParams, n_inner: int = 1, n_oute
     last step's StepOutputs when n_outer == 1, else one stacked row per
     block."""
     step = make_step_v2(geo, mat, btab, rtab, params)
-    return make_v2_block_runner(geo, mat, params, step, n_inner, n_outer)
+    return make_v2_block_runner(geo, mat, btab, params, step, n_inner, n_outer)
 
 
-def make_v2_block_runner(geo, mat, params: SimParams, step, n_inner: int, n_outer: int):
+def make_v2_block_runner(geo, mat, btab, params: SimParams, step, n_inner: int, n_outer: int):
     # Tail-room invariant: each step appends up to EVT_CAP + inj_cap rows at
     # the tail and only compaction reclaims dead lanes. Sub-blocks of m steps
-    # with m sized so the appends cannot outrun ~N/5 of slack.
+    # with m sized so the appends cannot outrun ~N/5 of slack (the wire's
+    # kinetic event window makes m smaller than the film's).
     N = params.n_cap
-    per_step = event_window(params) + params.inj_cap
+    per_step = event_window(geo, mat, btab, params) + params.inj_cap
     m = max(1, min(n_inner, (N // 5) // max(1, per_step)))
     while n_inner % m:  # largest divisor of n_inner <= the safe bound
         m -= 1
@@ -98,15 +99,22 @@ def make_v2_block_runner(geo, mat, params: SimParams, step, n_inner: int, n_oute
 
 
 def maybe_refresh_tau(state: SimState, geo, mat, params) -> SimState:
-    """Slope form: tau(T) = a + b*T is exact within a T-grid bin, so the
-    full-pool refresh runs only when a subvolume temperature CROSSES a bin
-    boundary since the last refresh (one host read of the flag)."""
+    """Run the full-pool lifetime refresh only when it is due (one host read
+    of the flag; nanokappa_tpu/sim/step.py:471):
+      * slim layout (slope form): tau(T) = a + b*T is exact within a T-grid
+        bin, so when a subvolume temperature CROSSES a bin boundary;
+      * plain layout (cached full lifetimes): when a subvolume temperature
+        drifted more than params.tau_dT since the last refresh."""
     nT = mat.tau_T.shape[0]
 
     def tbin(T):
         return torch.clamp(torch.searchsorted(mat.tau_T, T) - 1, 0, max(nT - 2, 0))
 
-    if bool(torch.any(tbin(state.T_sv) != tbin(state.T_tau))):
+    if state.layout == "slim":
+        due = torch.any(tbin(state.T_sv) != tbin(state.T_tau))
+    else:
+        due = torch.any((state.T_sv - state.T_tau).abs() > params.tau_dT)
+    if bool(due):
         refresh_tau_T(state, geo, mat, params)
         state.T_tau = state.T_sv
     return state

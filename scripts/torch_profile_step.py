@@ -1,13 +1,14 @@
-"""Where the port's film step spends its time on the card.
+"""Where the port's step spends its time on the card.
 
-    python scripts/torch_profile_step.py
+    python scripts/torch_profile_step.py [film|wire]     # default: film
 
-Builds the film exactly as chip_smoke.py does, warms up one run of
+Builds the film (pooled reservoirs) or the nanowire ('constant'
+reservoirs) exactly as chip_smoke.py does, warms up two runs of
 n_inner = 10 steps, then records one more run with torch.profiler (CPU and
 CUDA activities). Prints the step's wall time, the device's busy share
-(summed kernel time over the wall time of the window), the top operators by
-host and by device time, and writes the Chrome trace to
-chiprun_out/torch_step_trace.json. Needs a CUDA card.
+(summed kernel time over the wall time of the window), the launches per
+step, the top operators by host and by device time, and writes the Chrome
+trace to chiprun_out/torch_step_trace_<config>.json. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -28,13 +29,17 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_step: needs a CUDA card")
-    from chip_smoke import MESH, PARTICLES, SEED, card_line, film_ctx, film_params
+    from chip_smoke import FILM, MESH, PARTICLES, SEED, WIRE, build_ctx, card_line, run_params
+    from nanokappa_torch.material import synthetic_material
     from nanokappa_torch.sim.state import init_state
     from nanokappa_torch.sim.step import build_step
 
+    config = sys.argv[1] if len(sys.argv) > 1 else "film"
+    domain_kw, res_gen = {"film": (FILM, "pooled"), "wire": (WIRE, "constant")}[config]
     device = torch.device("cuda:0")
-    mat, dom, geo, btab = film_ctx(MESH, device)
-    n_p, rtab, params = film_params(mat, dom, geo, PARTICLES, device)
+    mat = synthetic_material(mesh=(MESH, MESH, MESH))
+    dom, geo, btab = build_ctx(mat, domain_kw, device)
+    n_p, rtab, params = run_params(mat, dom, PARTICLES, res_gen, device)
     state = init_state(mat, dom, geo, params, n_p, btab, temp_dist="linear", seed=SEED)
     run = build_step(geo, mat.device_tables(device), btab, rtab, params, n_inner=STEPS)
     for _ in range(2):
@@ -50,14 +55,16 @@ def main() -> None:
     dev_us = sum(
         e.self_device_time_total for e in events if e.device_type.name == "CUDA"
     )
+    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
     print(card_line())
-    print(f"run of {STEPS} steps: {wall * 1e3:.3f} ms wall, "
+    print(f"{config}: run of {STEPS} steps: {wall * 1e3:.3f} ms wall, "
           f"{wall / STEPS * 1e3:.3f} ms/step; kernels {dev_us / 1e3:.3f} ms "
-          f"= device busy {dev_us / 1e6 / wall:.4f} of the window")
+          f"= device busy {dev_us / 1e6 / wall:.4f} of the window; "
+          f"{launches / STEPS:.1f} cudaLaunchKernel per step")
     print(events.table(sort_by="self_cpu_time_total", row_limit=25))
     print(events.table(sort_by="self_device_time_total", row_limit=15))
     os.makedirs("chiprun_out", exist_ok=True)
-    prof.export_chrome_trace("chiprun_out/torch_step_trace.json")
+    prof.export_chrome_trace(f"chiprun_out/torch_step_trace_{config}.json")
 
 
 if __name__ == "__main__":

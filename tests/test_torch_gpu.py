@@ -6,7 +6,8 @@ JAX package's conftest is skipped:
     python -m pytest tests/test_torch_gpu.py -q --noconftest
 
 Without a card every test skips. Data movement and every int row must be
-bit-exact; float rows agree to rtol 2e-5 (kernel and twin round the drift
+bit-exact (kernel A's in-kernel draws too: kernel and twin hash the same
+counters); float rows agree to rtol 2e-5 (kernel and twin round the drift
 identically — nvcc --fmad=false, the same operation order — and differ at
 most by the card's expf/expm1f ulps); the sums to rtol 1e-5 plus 1e-5 of the
 column's absolute total (float32 sums in another order).
@@ -71,8 +72,10 @@ def _film(device):
     alive = torch.nonzero(pool[14] > 0.5).flatten()
     pool[10, alive[::20]] = torch.tensor(-2, dtype=torch.int32, device=device).view(torch.float32)
     pool[16, alive[1::3]] = torch.tensor(-1, dtype=torch.int32, device=device).view(torch.float32)
-    tau_T = mat.tau_T
-    cfg = mega_config(geo, params, 2, (float(tau_T[0]), float(tau_T[-1])), autosize_evt_cap(4096))
+    cfg = mega_config(
+        geo, mat.device_tables(device), btab, params,
+        autosize_evt_cap(geo, mat.device_tables(device), params, True, 4096), flip_axis=2,
+    )
     return pool, state.T_sv, cfg
 
 
@@ -103,6 +106,82 @@ def test_cuda_compact_pool_matches_plain(cuda):
     assert torch.equal(_bits(a), _bits(b))
 
 
+def _plain_pool(device, domain_kw):
+    """A mirror-off configuration (rough eta > 0 walls: the "plain" pool with
+    in-kernel diffuse reflection) at 4^3, its pool compacted, 5% STALE."""
+    from nanokappa_torch.geometry.device import build_device_geometry
+    from nanokappa_torch.geometry.domain import build_domain
+    from nanokappa_torch.material import synthetic_material
+    from nanokappa_torch.ops.compact_pool import compact_pool_plain
+    from nanokappa_torch.ops.megastep import mega_config
+    from nanokappa_torch.sim.boundary_tables import build_boundary_tables
+    from nanokappa_torch.sim.fused import event_window
+    from nanokappa_torch.sim.state import SimParams, init_state, particle_count
+
+    mat = synthetic_material(mesh=(4, 4, 4))
+    dom = build_domain(**domain_kw)
+    n_p, rho = particle_count(("total", 3000), mat, dom)
+    params = SimParams(
+        dt=1.0, n_cap=4096, inj_cap=512, temp_interp="nearest", res_gen="constant",
+        particle_density=rho, n_active_modes=mat.n_active_modes, t_reference=300.0,
+    )
+    geo = build_device_geometry(dom, device)
+    btab = build_boundary_tables(mat, dom, device=device)
+    tabs = mat.device_tables(device)
+    state = init_state(mat, dom, geo, params, n_p, btab, temp_dist="linear", seed=3)
+    assert state.layout == "plain"
+    pool, _ = compact_pool_plain(state.pool)
+    alive = torch.nonzero(pool[14] > 0.5).flatten()
+    pool[10, alive[::20]] = torch.tensor(-2, dtype=torch.int32, device=device).view(torch.float32)
+    cfg = mega_config(geo, tabs, btab, params, event_window(geo, tabs, btab, params))
+    return pool, state.T_sv, cfg
+
+
+WIRE = dict(
+    geometry="cylinder", dimensions=(4e3, 500.0, 8), subvolumes=("slice", 5, 2),
+    bound_pos=("relative", 0.5, 0.5, -0.1, 0.5, 0.5, 1.1, 1.1, 0.5, 0.5),
+    bound_cond=("T", "T", "R", "R"), bound_values=(305.0, 295.0, 2.0, 2.0),
+    connect_pos=("relative",),
+)
+# the film box with eta = 2 A walls: specular partners, so lanes also flag
+ROUGH_BOX = dict(
+    geometry="box", dimensions=(2e3, 1e3, 1e3), subvolumes=("slice", 5, 0),
+    bound_pos=("relative", -0.1, 0.5, 0.5, 1.1, 0.5, 0.5, 0.5, 0.5, -0.1, 0.5, 0.5, 1.1),
+    bound_cond=("T", "T", "R", "R", "P"), bound_values=(302.0, 298.0, 2.0, 2.0),
+    connect_pos=("relative", 0.5, -0.1, 0.5, 0.5, 1.1, 0.5),
+)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rta_on", [False, True])
+@pytest.mark.parametrize("kw", [WIRE, ROUGH_BOX], ids=["wire", "rough_box"])
+def test_cuda_megastep_plain_layout_matches_plain(cuda, kw, rta_on):
+    """Kernel A's mirror-off branch (triangle or box cast, in-kernel
+    diffuse reflection): kernel and twin draw the same numbers, so every row
+    agrees as on the film."""
+    from nanokappa_torch.ops.megastep import drift_megastep, drift_megastep_plain
+
+    pool, T_sv, cfg = _plain_pool(cuda, kw)
+    pk, pp = pool.clone(), pool.clone()
+    rk, ik, ck, lk, bk = drift_megastep(pk, T_sv, rta_on, cfg, seed=99)
+    rp, ip, cp, lp, bp = drift_megastep_plain(pp, T_sv, rta_on, cfg, seed=99)
+    torch.cuda.synchronize()
+    assert torch.equal(ck, cp) and int(cp[3]) > 0, (ck, cp)
+    ints = INT_ROWS[:-1]
+    for r in ints:
+        assert torch.equal(_bits(pk[r]), _bits(pp[r])), r
+    _close_rows(pk, pp, FLOAT_ROWS[:-1])
+    k = int(cp[2])
+    assert torch.equal(ik, ip)
+    for r in ints:
+        assert torch.equal(_bits(rk[r, :k]), _bits(rp[r, :k])), r
+    _close_rows(rk[:, :k], rp[:, :k], FLOAT_ROWS[:-1])
+    for a, b in ((lk, lp), (bk, bp)):
+        a, b = a.double().cpu(), b.double().cpu()
+        scale = b.abs().sum(0, keepdim=True) + b.abs().max()
+        assert bool(((a - b).abs() <= 1e-5 * b.abs() + 1e-5 * scale).all())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("rta_on", [False, True])
 def test_cuda_megastep_matches_plain(cuda, rta_on):
@@ -110,8 +189,8 @@ def test_cuda_megastep_matches_plain(cuda, rta_on):
 
     pool, T_sv, cfg = _film(cuda)
     pk, pp = pool.clone(), pool.clone()
-    rk, ck, lk, bk = drift_megastep(pk, T_sv, rta_on, cfg)
-    rp, cp, lp, bp = drift_megastep_plain(pp, T_sv, rta_on, cfg)
+    rk, _, ck, lk, bk = drift_megastep(pk, T_sv, rta_on, cfg)
+    rp, _, cp, lp, bp = drift_megastep_plain(pp, T_sv, rta_on, cfg)
     assert torch.equal(ck, cp) and int(cp[2]) > 0
     for r in INT_ROWS:
         assert torch.equal(_bits(pk[r]), _bits(pp[r])), r

@@ -30,7 +30,7 @@ def test_material_bit_equal(mesh):
     a, b = j_mat(mesh=mesh), synthetic_material(mesh=mesh)
     assert_same(vars(a), vars(b), "Material")
     # device tables: same names, same float32 rounding
-    ja, tb = a.device_tables(), b.device_tables()
+    ja, tb = a.device_tables(), b.device_tables("cpu")
     for f in dataclasses.fields(tb):
         assert_same(getattr(ja, f.name), getattr(tb, f.name), f"MaterialTables.{f.name}")
 
@@ -45,7 +45,7 @@ def test_domain_and_geometry_bit_equal(kw):
     a, b = j_dom(**kw), build_domain(**kw)
     for f in dataclasses.fields(b):
         assert_same(getattr(a, f.name), getattr(b, f.name), f"Domain.{f.name}")
-    ga, gb = j_geo(a), build_device_geometry(b)
+    ga, gb = j_geo(a), build_device_geometry(b, device="cpu")
     for f in dataclasses.fields(gb):
         assert_same(getattr(ga, f.name), getattr(gb, f.name), f"DeviceGeometry.{f.name}")
 
@@ -71,7 +71,9 @@ def test_mirror_gate_matches(pair):
     j, t = pair
     assert j_me(j.geo, j.btab, j.params, j.tabs) and mirror_eligible(t.geo, t.btab, t.params, t.tabs)
     N = t.params.n_cap
-    assert j_evt(j.geo, j.tabs, j.params, True, N, btab=j.btab) == autosize_evt_cap(N)
+    assert j_evt(j.geo, j.tabs, j.params, True, N, btab=j.btab) == autosize_evt_cap(
+        t.geo, t.tabs, t.params, True, N, btab=t.btab
+    )
 
 
 def test_reservoir_tables_bit_equal(pair):
@@ -100,7 +102,7 @@ def test_init_state_matches_jax(pair):
     from nanokappa_torch.convert import state_from_jax, state_to_jax
 
     j, t = pair
-    conv = state_from_jax(jax_fields(j.state))
+    conv = state_from_jax(jax_fields(j.state), "slim", device="cpu")
     assert_same(conv.pool, t.state.pool, "pool")
     for name in ("T_sv", "Np_sv", "T_tau", "n_leaving", "lost", "frozen"):
         assert_same(getattr(conv, name), getattr(t.state, name), name)
@@ -124,7 +126,7 @@ def test_tables_convert_from_jax(pair):
         (MaterialTables, j.tabs, t.tabs), (DeviceGeometry, j.geo, t.geo),
         (BoundaryTables, j.btab, t.btab), (ReservoirTables, j.rtab, t.rtab),
     ):
-        c = tables_from_jax(cls, jax_fields(a))
+        c = tables_from_jax(cls, jax_fields(a), device="cpu")
         for f in dataclasses.fields(cls):
             assert_same(getattr(c, f.name), getattr(b, f.name), f"{cls.__name__}.{f.name}")
 
@@ -140,6 +142,9 @@ def test_port_imports_without_jax():
         "import nanokappa_torch.sim.step, nanokappa_torch.convert\n"
         "import nanokappa_torch.ops.megastep, nanokappa_torch.ops.compact_pool\n"
         "import nanokappa_torch.ops.compact, nanokappa_torch.material\n"
+        "import nanokappa_torch.ops.raycast, nanokappa_torch.sim.reservoir\n"
+        "import nanokappa_torch.sim.fused, nanokappa_torch.sim.cascade\n"
+        "import nanokappa_torch.sim.state, nanokappa_torch.sim.scatter\n"
         "bad = [k for k in sys.modules if k.startswith('nanokappa_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"

@@ -74,7 +74,7 @@ def test_megastep_matches_pallas(film_pool, rta_on):
 
     j, t, pool = film_pool
     N = pool.shape[1]
-    ecap = autosize_evt_cap(N)
+    ecap = autosize_evt_cap(t.geo, t.tabs, t.params, True, N)
     tau_T = np_(t.tabs.tau_T)
     bounds = (float(tau_T[0]), float(tau_T[-1]))
     L = N // 8
@@ -84,9 +84,9 @@ def test_megastep_matches_pallas(film_pool, rta_on):
         w_exp=min(256, ecap), tau_bounds=bounds,
     )
     jp = np.asarray(jp).reshape(18, N)
-    cfg = mega_config(t.geo, t.params, 2, bounds, ecap)
+    cfg = mega_config(t.geo, t.tabs, t.btab, t.params, ecap, flip_axis=2)
     tp = torch.as_tensor(pool.copy())
-    rows, counts, led, bins = drift_megastep(tp, t.state.T_sv, bool(rta_on), cfg)
+    rows, _, counts, led, bins = drift_megastep(tp, t.state.T_sv, bool(rta_on), cfg)
 
     # pool: int rows exact, float rows to the expm1 twin's 2e-5
     for r in INT_ROWS:
@@ -94,7 +94,7 @@ def test_megastep_matches_pallas(film_pool, rta_on):
     assert_float_rows(tp, jp, [0, 1, 2, 3, 4, 5, 6, 7, 8, 11, 13, 17], "pool")
     # counts: pending, alive, kept
     k = int(np.asarray(kept).sum())
-    assert counts.tolist() == [int(np.asarray(ecnt).sum()), int(np.asarray(acnt).sum()), k]
+    assert counts.tolist() == [int(np.asarray(ecnt).sum()), int(np.asarray(acnt).sum()), k, 0, 0]
     assert k > 0, "the film pool must export some rows"
     # exported rows in ascending lane order, int columns bit-exact
     jr = np.asarray(jrows)[:, :k]

@@ -31,7 +31,7 @@ def test_slice_deterministic_matches_jax_v2():
     j, t = build_pair(
         CLOSED_FILM, temp_dist="custom", subvol_temp=(299.0, 299.5, 300.0, 300.5, 301.0),
     )
-    state = state_from_jax(jax_fields(j.state), seed=3)
+    state = state_from_jax(jax_fields(j.state), "slim", device="cpu", seed=3)
     run = build_step(t.geo, t.tabs, t.btab, t.rtab, t.params, n_inner=1, n_outer=4)
     _, out = run(state)
 
@@ -93,7 +93,7 @@ def test_finalize_and_tau_refresh_match_jax():
 
     j, t = build_pair(CLOSED_FILM, temp_dist="custom", subvol_temp=(299.0, 299.5, 300.0, 300.5, 301.0))
     js = dataclasses.replace(j.state, step=jnp.asarray(1, jnp.int32))
-    ts = state_from_jax(jax_fields(js))
+    ts = state_from_jax(jax_fields(js), "slim", device="cpu")
     jf = np.asarray(j_final(j.geo, j.tabs, j.params, btab=j.btab)(js).dev)
     tf = np_(make_finalize(t.geo, t.tabs, t.params)(ts).dev)
     np.testing.assert_allclose(tf, jf, rtol=2e-6, atol=2e-6 * np.abs(jf).max())

@@ -1,7 +1,8 @@
 """Shared builders for the port's parity tests (tests/test_torch_*.py): one
 configuration built by both packages — the JAX reference (`nanokappa_tpu`)
-and the PyTorch port (`nanokappa_torch`) — from the same host inputs, small
-enough for the CPU (a 4^3 synthetic material, a 4096-lane pool)."""
+and the PyTorch port (`nanokappa_torch`, on the CPU) — from the same host
+inputs, small enough for the CPU (a 4^3 or 6^3 synthetic material, a
+4096-lane pool)."""
 
 from __future__ import annotations
 
@@ -35,6 +36,18 @@ CLOSED_FILM = dict(
     bound_values=(0.0, 0.0),
     connect_pos=("relative", -0.1, 0.5, 0.5, 1.1, 0.5, 0.5,
                  0.5, 0.5, -0.1, 0.5, 0.5, 1.1),
+)
+# the nanowire (bench.py:build_wire_ctx): an 8-sided cylinder 4000 A long and
+# 500 A across (32 triangles, 10 facets), T caps at 305 / 295 K, rough
+# eta = 2 A side walls, 5 axial slices
+WIRE = dict(
+    geometry="cylinder",
+    dimensions=(4e3, 500.0, 8),
+    subvolumes=("slice", 5, 2),
+    bound_pos=("relative", 0.5, 0.5, -0.1, 0.5, 0.5, 1.1, 1.1, 0.5, 0.5),
+    bound_cond=("T", "T", "R", "R"),
+    bound_values=(305.0, 295.0, 2.0, 2.0),
+    connect_pos=("relative",),
 )
 
 
@@ -79,10 +92,11 @@ def assert_same(a, b, path="obj"):
 def build_pair(
     domain_kw=FILM, mesh=(4, 4, 4), n_p=3000, n_cap=4096, inj_cap=512,
     seed=3, temp_dist="linear", subvol_temp=(), step_impl="v2",
+    res_gen="pooled",
 ):
-    """The same film in both packages (host arrays bit-equal by
+    """The same configuration in both packages (host arrays bit-equal by
     construction; the JAX init_state and the port's draw the same NumPy
-    numbers)."""
+    numbers). The 'constant' scheme gets the autosized lattice depth."""
     from nanokappa_tpu.geometry.device import build_device_geometry as j_geo
     from nanokappa_tpu.geometry.domain import build_domain as j_dom
     from nanokappa_tpu.material import synthetic_material as j_mat
@@ -98,21 +112,24 @@ def build_pair(
 
     j = SimpleNamespace()
     t = SimpleNamespace()
+    from nanokappa_torch.sim.reservoir import autosize_c_max
+
     j.mat, t.mat = j_mat(mesh=mesh), synthetic_material(mesh=mesh)
     j.dom, t.dom = j_dom(**domain_kw), build_domain(**domain_kw)
     n_p, rho = particle_count(("total", n_p), t.mat, t.dom)
+    j.rtab = j_rt(j.mat, j.dom, 1.0, rho)
+    t.rtab = build_reservoir_tables(t.mat, t.dom, 1.0, rho, device="cpu")
     common = dict(
         dt=1.0, n_cap=n_cap, inj_cap=inj_cap, temp_interp="nearest",
-        res_gen="pooled", particle_density=rho,
+        res_gen=res_gen, particle_density=rho,
         n_active_modes=t.mat.n_active_modes, t_reference=300.0,
+        c_max=autosize_c_max(t.rtab) if res_gen == "constant" else 3,
     )
     j.params = JParams(step_impl=step_impl, **common)
     t.params = SimParams(**common)
-    j.geo, t.geo = j_geo(j.dom), build_device_geometry(t.dom)
-    j.btab, t.btab = j_bt(j.mat, j.dom), build_boundary_tables(t.mat, t.dom)
-    j.rtab = j_rt(j.mat, j.dom, 1.0, rho)
-    t.rtab = build_reservoir_tables(t.mat, t.dom, 1.0, rho)
-    j.tabs, t.tabs = j.mat.device_tables(), t.mat.device_tables()
+    j.geo, t.geo = j_geo(j.dom), build_device_geometry(t.dom, device="cpu")
+    j.btab, t.btab = j_bt(j.mat, j.dom), build_boundary_tables(t.mat, t.dom, device="cpu")
+    j.tabs, t.tabs = j.mat.device_tables(), t.mat.device_tables("cpu")
     init = dict(temp_dist=temp_dist, subvol_temp=subvol_temp, seed=seed)
     j.state = j_init(j.mat, j.dom, j.geo, j.params, n_p, btab=j.btab, **init)
     t.state = init_state(t.mat, t.dom, t.geo, t.params, n_p, t.btab, **init)
