@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (`nanokappa_torch`).
 
-    python3 chip_smoke.py            # the film and the nanowire, 1e6 particles, 31^3 table
+    python3 chip_smoke.py     # the film, the nanowire and the large mesh, 1e6 particles, 31^3 table
 
 Needs one CUDA card. In order it:
   1. prints the card's name and power limit (nvidia-smi),
@@ -23,7 +23,17 @@ Needs one CUDA card. In order it:
      run), each exactly as bench.py:run_config sizes it — 10^6 particles,
      pool = round_pool_cap(1.25 N), n_inner = n_outer = 10, 2 warm-up and
      3 timed runs — with every kernel's launch counter zeroed just before
-     and read just after, and checks the physics of each.
+     and read just after, and checks the physics of each,
+  6. drives the large mesh (bench.py:build_bigmesh_ctx: a 96-sided
+     cylinder, 384 triangles, 'constant' reservoirs; kernel A with
+     kernel_cast off and kernel E) through the driver entry a user runs,
+     `Simulation(read_args(argv), material=mat).run()`, for 500 steps at
+     10^6 particles into a temporary results folder, the counters zeroed
+     just before the Simulation is built and read after its run; checks its
+     physics and its result files, then holds kernel E (on the run's
+     1,277,952-lane pool, at the injection width and at the event width)
+     and the cast-off branch of kernel A against their twins on that
+     context.
 Any failed check raises (non-zero exit). The last lines are the card line,
 one JSON line with the kernels' numbers, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -64,6 +74,10 @@ WIRE = dict(
     bound_values=(305.0, 295.0, 2.0, 2.0),
     connect_pos=("relative",),
 )
+# bench.py:build_bigmesh_ctx: the wire's ends and walls on a 96-sided
+# cylinder (384 triangles, 98 facets), beyond kernel A's in-kernel cast
+BIGMESH = dict(WIRE, dimensions=(4e3, 500.0, 96))
+BIG_STEPS = 500
 
 
 def card_line() -> str:
@@ -396,6 +410,206 @@ def main_path(name, mat, dom, geo, btab, rtab, params, n_p, tabs, card):
     return out, n0, launches, events
 
 
+def bigmesh_argv(folder: str, device) -> list[str]:
+    """The large mesh as CLI arguments, sized as bench.py:run_config sizes
+    it (10^6 particles, pool margin 1.25, nearest temperatures, linear
+    initial profile, 'constant' reservoirs)."""
+    def words(v):
+        return [str(x) for x in v]
+
+    b = BIGMESH
+    return [
+        "--mat_folder", ".", "--hdf_file", "synthetic", "--poscar_file", "synthetic",
+        "--geometry", b["geometry"], "--dimensions", *words(b["dimensions"]),
+        "--subvolumes", *words(b["subvolumes"]), "--bound_pos", *words(b["bound_pos"]),
+        "--bound_cond", *b["bound_cond"], "--bound_values", *words(b["bound_values"]),
+        "--connect_pos", *words(b["connect_pos"]),
+        "--temp_dist", "linear", "--temp_interp", "nearest",
+        "--particles", "total", f"{PARTICLES:.0f}", "--pool_margin", "1.25",
+        "--timestep", "1", "--iterations", str(BIG_STEPS), "--reservoir_gen", "constant",
+        "--seed", str(SEED), "--results_folder", folder, "--output", "screen",
+        "--device", str(device),
+    ]
+
+
+def conv_columns(n_res: int, n_sv: int) -> int:
+    """Columns of a convergence.txt row of slice subvolumes, as the JAX
+    driver's writer lays them out (nanokappa_tpu/io/writers.py
+    ConvergenceWriter.write_row): time stamp, step, time, total energy,
+    per reservoir the energy balance and 3 flux components, N_p, per slice
+    T, E, 3 flux components, N_p and kappa, and the total kappa."""
+    return 4 + 4 * n_res + 1 + 7 * n_sv + 1
+
+
+def bigmesh_main(mat, card, device):
+    """The large mesh through the driver: the launch counters zeroed just
+    before the Simulation is built (its first cast is kernel E's) and read
+    after its run. Returns (sim, its results folder, launches, checks)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nanokappa_torch.driver import Simulation
+    from nanokappa_torch.io.config import read_args
+    from nanokappa_torch.ops import compact, compact_pool, megastep, raycast_large
+    from nanokappa_torch.sim.fused import event_window
+
+    mods = (megastep, compact_pool, compact, raycast_large)
+    for m in mods:
+        m.launches = 0
+    t0 = time.perf_counter()
+    td = tempfile.mkdtemp(prefix="chip_smoke_bigmesh_")
+    sim = Simulation(read_args(bigmesh_argv(td, device)), material=mat)
+    t_setup = time.perf_counter() - t0
+    sim.run(verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {m.__name__.rsplit(".", 1)[1]: m.launches for m in mods}
+
+    tm = sim.timer
+    row = sim.window[-1]
+    n0, n_alive = sim.n_p_target, int(row["N_p"])
+    lost, T = row["lost_split"], row["T"]
+    steps_t = tm.calls["device_step"][-3:]
+    ups = n_alive * 300 / sum(steps_t)
+    evt = event_window(sim.geo, sim.mtab, sim.btab, sim.params)
+    cov = float((sim.btab._host["corr"] >= 0).mean())
+    print(f"bigmesh: {sim.geo.tri_origin.shape[0]} triangles, {sim.geo.n_facets} facets, "
+          f"{sim.btab.n_rows} boundary-table rows (built in "
+          f"{tm.total('setup_boundary_tables'):.1f} s), specular-partner coverage {cov:.3g}, "
+          f"{n0} particles, pool {sim.params.n_cap}, inj_cap {sim.params.inj_cap}, "
+          f"c_max {sim.params.c_max}, evt_cap {evt} (regrows {sim.evt_regrows})", flush=True)
+    print(f"bigmesh: T_sv {[round(float(t), 3) for t in T]}", flush=True)
+    print(f"bigmesh: N_p {n_alive} (start {n0}), lost {lost.tolist()}, frozen {row['frozen']}, "
+          f"escaped {sim.n_escaped_total}, launches {launches}", flush=True)
+    print(f"bigmesh: {ups:.4g} updates/s ({sum(steps_t) / 300 * 1e3:.3f} ms/step, device_step "
+          f"of the last 3 blocks) on {card}; driver wall {wall:.1f} s (setup {t_setup:.1f} s)",
+          flush=True)
+    print("bigmesh: " + tm.report().replace("\n", "\nbigmesh: "), flush=True)
+
+    files = ("convergence.txt", "residue.txt", "subvolumes.txt", "particle_data.txt",
+             "arguments.txt")
+    with open(os.path.join(sim.folder, "convergence.txt")) as f:
+        lines = f.read().splitlines()
+    n_cols = {len(line.split()) for line in lines[1:]}
+    checks = {
+        # capacity drops and defective lanes: none; lanes still bouncing
+        # after k_max narrow rounds are quarantined, as in the JAX package.
+        # On this mesh they are lanes reflected on an edge between two side
+        # facets, re-hitting the neighbour at t = 0 through the large-mesh
+        # cast's backward slack (t > -1e-4 ps, no facing test) and its 1e-4
+        # barycentric tolerance, both the reference's: the JAX v2 step on
+        # its Pallas cast quarantines them at the port's rate
+        # (tests/torch_stuck_lanes.py), ~3-5e-6 per particle-step, so the
+        # gate is 1e-5 (the wire's is 1e-6)
+        "bigmesh: nothing dropped or defective": lost[0] == 0 and lost[2] == 0,
+        "bigmesh: k_max-stuck below 1e-5 per particle-step": lost[1] <= 1e-5 * n0 * BIG_STEPS,
+        "bigmesh: frozen under 1% of N": int(row["frozen"]) < 0.01 * n0,
+        "bigmesh: population within 5%": abs(n_alive - n0) <= 0.05 * n0,
+        "bigmesh: T_sv in (295, 305)": bool(((T > 295.0) & (T < 305.0)).all()),
+        "bigmesh: T_sv falling hot to cold": bool((np.diff(T) < 0).all()),
+        "bigmesh: E, A, B, C launched": all(v > 0 for v in launches.values()),
+        f"bigmesh: {BIG_STEPS} steps run": sim.current_timestep == BIG_STEPS,
+        "bigmesh: result files written": all(
+            os.path.getsize(os.path.join(sim.folder, f)) > 0 for f in files
+        ),
+        "bigmesh: convergence.txt has the JAX driver's columns": n_cols == {
+            conv_columns(sim.geo.n_reservoirs, sim.geo.n_subvols)
+        } and len(lines) == 1 + BIG_STEPS // 10,
+    }
+    return sim, td, launches, checks
+
+
+def check_raycast_large(name, geo, pos, vel, ex):
+    """Kernel E against its twin on one set of rays: t and facet bit for
+    bit (0 mismatched lanes); timed, with its bound from the chunks the
+    blocks solved."""
+    import torch
+
+    from nanokappa_torch.ops import raycast_large as rl
+
+    tabs = rl.prep(geo)
+    n = pos.shape[0]
+    solved = torch.zeros(-(-n // rl.LANE_BLOCK), dtype=torch.int32, device=pos.device)
+    tk, fk = rl.raycast_large(geo, pos, vel, ex, solved=solved)
+    tp, fp = rl.raycast_large_plain(tabs, pos, vel, ex)
+    torch.cuda.synchronize()
+    bad = int(((tk.view(torch.int32) != tp.view(torch.int32)) | (fk != fp)).sum())
+    if bad:
+        raise AssertionError(f"{name}: {bad} of {n} lanes differ from the twin")
+    pairs = int(solved.sum()) * rl.LANE_BLOCK * rl.BF
+    n_bytes = n * (3 + 3 + 1) * 4 + n * 8 + int(solved.sum()) * rl.TAB_ROWS * rl.BF * 4
+    b_ms, b_by = bound(n_bytes, pairs * rl.OPS_PER_PAIR)
+    hits = int((fk >= 0).sum())
+    print(f"  {name}: {n} rays, {hits} hits, chunks solved per block "
+          f"{float(solved.float().mean()):.3f} of {tabs.nc}, 0 mismatched lanes", flush=True)
+    return dict(
+        name=name, route="cuda", source="nanokappa_torch/csrc/raycast_large.cu",
+        replaces="nanokappa_tpu/ops/raycast_pallas.py:292", max_abs_err=0.0, match="bit-exact",
+        ms=timed(lambda r: rl.raycast_large(geo, *r), (pos, vel, ex), 20),
+        plain_ms=timed(lambda r: rl.raycast_large_plain(tabs, *r), (pos, vel, ex), 3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+
+
+def bigmesh_kernel_checks(sim, device):
+    """Kernel E and kernel A's cast-off branch against their twins at the
+    large mesh's shapes, on the pool the main path left."""
+    import torch
+
+    from nanokappa_torch.ops import compact_pool
+    from nanokappa_torch.ops.megastep import drift_megastep, mega_config
+    from nanokappa_torch.ops.raycast import raycast
+    from nanokappa_torch.sim.fused import event_window
+    from nanokappa_torch.sim.state import C_ALIVE, C_CF, C_DEV, C_ONF, C_TCOLL, as_f32
+
+    geo, pool = sim.geo, sim.state.pool
+    N = pool.shape[1]
+    # rays from the pool's lanes (dead ones too: the first cast covers the
+    # whole pool), their own exclusions, some velocity components zeroed,
+    # and every 97th lane aimed at a triangle vertex across the wire
+    pos = pool[0:3].T.contiguous()
+    vel = pool[3:6].T.contiguous()
+    ex = pool[C_ONF].contiguous().view(torch.int32).clone()
+    vel[1::11, 2] = 0.0
+    vel[2::11, :2] = 0.0
+    aim = torch.arange(0, N, 97, device=device)
+    verts = geo.tri_origin[aim % geo.tri_origin.shape[0]]
+    pos[aim, 2] = verts[:, 2]
+    vel[aim] = (verts - pos[aim]) / 5.0
+    ex[aim] = -1
+    evt = event_window(geo, sim.mtab, sim.btab, sim.params)
+    recs = {
+        "E_pool": check_raycast_large("raycast_large[pool]", geo, pos, vel, ex),
+        "E_inj": check_raycast_large("raycast_large[injections]", geo, pos[: sim.params.inj_cap],
+                                     vel[: sim.params.inj_cap], ex[: sim.params.inj_cap]),
+        "E_evt": check_raycast_large("raycast_large[events]", geo, pos[:evt], vel[:evt], ex[:evt]),
+    }
+    # kernel A, cast-off: the compacted pool with 1% of its lanes pre-cast
+    pool_c, _ = compact_pool.compact_pool_plain(pool)
+    g = torch.Generator(device=device).manual_seed(11)
+    pre = torch.nonzero((torch.rand(N, generator=g, device=device) < 0.01)
+                        & (pool_c[C_ALIVE] > 0.5)).flatten()
+    t, f = raycast(geo, pool_c[0:3, pre].T, pool_c[3:6, pre].T,
+                   pool_c[C_ONF, pre].contiguous().view(torch.int32))
+    pool_c[C_TCOLL, pre] = -(t / sim.params.dt) - 1.0
+    pool_c[C_CF, pre] = as_f32(f)
+    cfg = mega_config(geo, sim.mtab, sim.btab, sim.params, evt)
+    assert not cfg.kernel_cast
+    recs["castoff"] = check_megastep("drift_megastep[cast-off]", pool_c, sim.state.T_sv, cfg, 3, 0)
+    # the pre-cast lanes skip the deferred RTA they predate; the others take it
+    pk = pool_c.clone()
+    drift_megastep(pk, sim.state.T_sv, True, cfg)
+    same = pk[C_DEV].view(torch.int32) == pool_c[C_DEV].view(torch.int32)
+    alive = pool_c[C_ALIVE] > 0.5
+    if not bool(same[pre].all()) or float(same[alive].float().mean()) > 0.5:
+        raise AssertionError("cast-off: the pre-cast lanes must skip the deferred RTA, the rest take it")
+    print(f"  cast-off: {pre.numel()} pre-cast lanes kept their occupation under RTA", flush=True)
+    return recs
+
+
 def main(device=None) -> None:
     import numpy as np
     import torch
@@ -513,6 +727,23 @@ def main(device=None) -> None:
         "wire: flagged specular exports == 0 (coverage 0)": events[1] == 0 if w_cov == 0 else events[1] > 0,
         "wire: A, B, C launched": all(v > 0 for v in w_launch.values()),
     })
+    del out
+    torch.cuda.empty_cache()
+
+    # ---- the large mesh through the driver, then its kernel checks -----------
+    import shutil
+
+    sim, sim_dir, b_launch, b_checks = bigmesh_main(mat, card, device)
+    checks.update(b_checks)
+    t0 = time.perf_counter()
+    recs.update(bigmesh_kernel_checks(sim, device))
+    for k in ("E_pool", "E_inj", "E_evt", "castoff"):
+        r = recs[k]
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']:.3g} "
+              f"({r['match']})", flush=True)
+    print(f"large-mesh kernel checks passed in {time.perf_counter() - t0:.1f} s", flush=True)
+    shutil.rmtree(sim_dir, ignore_errors=True)
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise SystemExit(f"chip_smoke: failed checks: {failed}")
@@ -522,6 +753,9 @@ def main(device=None) -> None:
     recs["pool"]["launches"] = w_launch["compact_pool"]
     recs["survivors"]["launches"] = f_launch["compact"]
     recs["lattice"]["launches"] = w_launch["compact"]
+    recs["castoff"]["launches"] = b_launch["megastep"]
+    for k in ("E_pool", "E_inj", "E_evt"):
+        recs[k]["launches"] = b_launch["raycast_large"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card, flush=True)

@@ -6,12 +6,17 @@
 // _kernel :298) for the box and triangle casts (_tri_raycast :244), slice
 // subvolumes, nearest temperatures, the slim mirror, in-kernel diffuse
 // reflection (:382-402, :709-845, :883-888) and the export of pending lanes
-// (:890-944). Python wrapper, plain twin and the per-lane algorithm:
-// nanokappa_torch/ops/megastep.py.
+// (:890-944), and its kernel_cast-off branch for large meshes (:548-570,
+// :862-864, :1183-1190). Python wrapper, plain twin and the per-lane
+// algorithm: nanokappa_torch/ops/megastep.py.
 //
 // Templates: TRI (triangle cast, else the box slab cast) x SLIM (the slim
-// mirror, else the plain layout), so each path pays only for its own
-// registers. The facet table, the triangle table, T_sv and the lifetime
+// mirror, else the plain layout) x PRECAST (kernel_cast off: no cast and no
+// event round; injections arrive pre-cast with t_enc = -t/dt - 1 in C_TCOLL
+// and the real facet in C_CF, and every lane whose flight ends in the step
+// exports), so each path pays only for its own registers. PRECAST is its
+// own instantiation because the in-kernel-diffuse one reads C_TCOLL < -1.5
+// as "already flagged" and the two encodings collide. The facet table, the triangle table, T_sv and the lifetime
 // grid are staged in shared memory per block; the diffuse tables (diff2,
 // omega_vel, |k|^2, the partner bitmask, the lifetime table) are gathered
 // from global memory (they fit in the 50 MB L2) at a rough-wall hit only.
@@ -29,7 +34,7 @@
 
 struct MegaCfg {  // mirrored by _CCfg in ops/megastep.py, field for field
   int n, n_rows, tri, sv, sv8, rta_on, flip_axis, slice_axis, ecap;
-  int n_facets, n_tris, rounds, n_modes, n_tau;
+  int n_facets, n_tris, rounds, n_modes, n_tau, precast;
   unsigned int seed;
   float dt, t_ref, hbar, kb, x_ref, lo_b, inv_len, tau_tmin, tau_tmax;
   const float* facets;     // (n_facets, FT_W) facet table, ints as bits
@@ -186,7 +191,7 @@ __device__ __forceinline__ float e_bin(float omega, float dev, float T, const Me
 }
 
 // blk: per-block counts [pending | alive | diffused | flagged], nb each
-template <bool TRI, bool SLIM>
+template <bool TRI, bool SLIM, bool PRECAST>
 __global__ void __launch_bounds__(NK_BLOCK)
 mega_lanes(const MegaCfg c, float* __restrict__ pool, const float* __restrict__ T_sv,
            uint8_t* __restrict__ pend_flag, int* __restrict__ blk,
@@ -204,7 +209,7 @@ mega_lanes(const MegaCfg c, float* __restrict__ pool, const float* __restrict__ 
   const int N = c.n;
   const int nb = gridDim.x;
   const int i = blockIdx.x * NK_BLOCK + threadIdx.x;
-  const bool dkern = !SLIM && c.n_modes > 0;  // the diffuse tables are present
+  const bool dkern = !SLIM && !PRECAST && c.n_modes > 0;  // the diffuse tables are present
   bool alive = false, pend = false, sflag = false;
   int n_diff = 0;
   int seg_bin = -1, seg_led = -1;
@@ -248,11 +253,14 @@ mega_lanes(const MegaCfg c, float* __restrict__ pool, const float* __restrict__ 
       tau_ev = tau + tau_b * T_c;
     }
     const float decay = tau_ev > 0.0f ? expf((-c.dt) / max_p(tau_ev, 1e-12f)) : 0.0f;
-    const bool fresh = cf == STALE;
+    // fresh: injected this step (it predates the deferred RTA)
+    const bool fresh = PRECAST ? t_coll < -0.5f : cf == STALE;
     if (alive && !fresh && c.rta_on) dev = g + (dev - g) * decay;
 
-    // ---- 2. stale-lane ray cast ----------------------------------------------
-    if (alive && fresh) {
+    // ---- 2. stale-lane ray cast, or the pre-cast flight time decoded ---------
+    if (PRECAST) {
+      if (fresh) t_coll = -t_coll - 1.0f;
+    } else if (alive && fresh) {
       float tb;
       int fb;
       cast<TRI>(p, v, onf, s_fac, s_tri, c.n_tris, &tb, &fb);
@@ -267,8 +275,8 @@ mega_lanes(const MegaCfg c, float* __restrict__ pool, const float* __restrict__ 
     t_coll = t_coll - sf;
     rem = alive ? max_p(rem - sf, 0.0f) : 0.0f;
 
-    // ---- 4. in-kernel event rounds ---------------------------------------------
-    for (int round = 0; round < c.rounds; ++round) {
+    // ---- 4. in-kernel event rounds (none with PRECAST) --------------------------
+    for (int round = 0; round < (PRECAST ? 0 : c.rounds); ++round) {
       const bool pd = alive && rem > REMAIN_EPS && cf >= 0 && t_coll <= 1e-9f;
       if (!pd) continue;
       const float* fr = s_fac + cf * FT_W;
@@ -465,11 +473,12 @@ sum_counts(const int* __restrict__ a, int nb, int* __restrict__ out) {
   if (threadIdx.x == 0) out[blockIdx.x == 0 ? 1 : blockIdx.x + 2] = (int)sh[0];
 }
 
-template <bool TRI, bool SLIM>
+template <bool TRI, bool SLIM, bool PRECAST = false>
 void launch_lanes(const MegaCfg& c, int nb, size_t smem, cudaStream_t s, float* pool,
                   const float* T, uint8_t* flag, int* blk, float* part_bins,
                   float* part_led) {
-  mega_lanes<TRI, SLIM><<<nb, NK_BLOCK, smem, s>>>(c, pool, T, flag, blk, part_bins, part_led);
+  mega_lanes<TRI, SLIM, PRECAST><<<nb, NK_BLOCK, smem, s>>>(c, pool, T, flag, blk, part_bins,
+                                                            part_led);
 }
 
 }  // namespace
@@ -498,7 +507,11 @@ extern "C" int nk_megastep(const void* cfg, void* pool, const void* T_sv, void* 
       sizeof(float) * ((size_t)c.n_facets * FT_W + (size_t)c.n_tris * TRI_W + c.sv + c.n_tau);
 
   const bool slim = c.n_rows == 18;
-  if (c.tri) {
+  if (c.precast) {  // the plain pool only; no facet or triangle table
+    if (slim || c.n_facets != 0 || c.n_tris != 0 || c.rounds != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    launch_lanes<false, false, true>(c, nb, smem, s, p, T, flag, blk, part_bins, part_led);
+  } else if (c.tri) {
     if (slim) launch_lanes<true, true>(c, nb, smem, s, p, T, flag, blk, part_bins, part_led);
     else launch_lanes<true, false>(c, nb, smem, s, p, T, flag, blk, part_bins, part_led);
   } else {

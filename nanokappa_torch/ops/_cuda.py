@@ -36,12 +36,14 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry points and their argument types (pointers and the stream are
 # c_void_p: a plain int argument would be cut to 32 bits)
 _SIGNATURES = {
     "nk_compact_indices": [_P, _I, _I, _P, _P, _P, _P],
     "nk_compact_pool": [_P, _P, _I, _I, _P, _P, _P],
     "nk_megastep": [_P] * 12,
+    "nk_raycast_large": [_P, _P, _L, _L, _L, _L, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P],
 }
 
 _LIB = None

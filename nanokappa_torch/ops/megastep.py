@@ -10,11 +10,18 @@ apart by the pool's layout tag (sim/state.py):
     :883-888) — with the draws made here rather than read from a
     presample pool.
 The ray cast is the box slab cast or, for a mesh of at most 128 triangles,
-the Möller–Trumbore cast of `_tri_raycast` (:244). Per lane, in order:
+the Möller–Trumbore cast of `_tri_raycast` (:244). Larger meshes run the
+kernel_cast-off branch (:548-570, :862-864, :1183-1190) on the "plain"
+pool: no cast and no in-kernel round — injections arrive pre-cast
+(sim/fused.py, through kernel E) with t_enc = -t/dt - 1 in C_TCOLL and the
+real facet in C_CF, and every lane whose flight ends in the step exports.
+Per lane, in order:
   1. deferred RTA (the previous step's scattering) with the slope-form
      lifetime tau = a + b*T_clamped on "slim", the cached lifetime on
-     "plain"; lanes injected this step (C_CF == STALE) skip it,
-  2. the ray cast for stale lanes,
+     "plain"; lanes injected this step (C_CF == STALE, or C_TCOLL < -0.5
+     with kernel_cast off) skip it,
+  2. the ray cast for stale lanes (kernel_cast off: the pre-cast flight
+     time decoded, t = -t_enc - 1),
   3. drift by min(t_coll, remaining),
   4. up to two rounds of in-kernel events: reservoir absorption into a
      per-reservoir ledger [e, e*v/(v.n) xyz, count], periodic translation,
@@ -135,7 +142,7 @@ class _CCfg(ctypes.Structure):
         ("ecap", ctypes.c_int), ("n_facets", ctypes.c_int),
         ("n_tris", ctypes.c_int), ("rounds", ctypes.c_int),
         ("n_modes", ctypes.c_int), ("n_tau", ctypes.c_int),
-        ("seed", ctypes.c_uint),
+        ("precast", ctypes.c_int), ("seed", ctypes.c_uint),
         ("dt", ctypes.c_float), ("t_ref", ctypes.c_float),
         ("hbar", ctypes.c_float), ("kb", ctypes.c_float),
         ("x_ref", ctypes.c_float), ("lo_b", ctypes.c_float),
@@ -163,6 +170,7 @@ class MegaConfig:
     tau_tmin: float
     tau_tmax: float
     ecap: int
+    kernel_cast: bool  # False: large meshes, injections pre-cast, no rounds
     rounds: int  # in-kernel event rounds
     dkern: bool  # "plain" with rough walls: in-kernel diffuse reflection
     box: tuple | None  # host (axis, sign, plane) lists of a box's six walls
@@ -186,7 +194,8 @@ class MegaConfig:
 
     def c_struct(self, n: int, rta_on: bool, seed: int) -> _CCfg:
         c = _CCfg()
-        c.n, c.n_rows, c.tri = n, self.n_rows, int(self.box is None)
+        c.n, c.n_rows = n, self.n_rows
+        c.tri, c.precast = int(self.box is None and self.kernel_cast), int(not self.kernel_cast)
         c.sv, c.sv8 = self.sv, self.sv8
         c.rta_on, c.flip_axis = int(bool(rta_on)), self.flip_axis
         c.slice_axis, c.ecap = self.slice_axis, self.ecap
@@ -250,18 +259,25 @@ def partner_bitmask(btab) -> np.ndarray:
     return cm.view(np.int32)
 
 
-def mega_config(geo, mat, btab, params, ecap: int, flip_axis: int | None = None) -> MegaConfig:
+def mega_config(
+    geo, mat, btab, params, ecap: int, flip_axis: int | None = None,
+    kernel_cast: bool | None = None,
+) -> MegaConfig:
     """The drift kernel's tables for one geometry and run (built once):
     the "slim" layout when `flip_axis` (the slim gate's wall axis) is
     given, else "plain" — with the diffuse tables when there are rough
-    walls."""
+    walls and the kernel casts, with no facet or triangle table when it
+    cannot (kernel_cast off). `kernel_cast` defaults to what the geometry
+    allows (sim/fused.py kernel_cast_ok); False forces the cast-off branch."""
     from nanokappa_torch.geometry.device import host
     from nanokappa_torch.ops.raycast import box_tables, tri_table
+    from nanokappa_torch.sim.fused import kernel_cast_ok
 
     assert geo.subvol_type == "slice"
     d = geo.device
     slim = flip_axis is not None
-    dkern = not slim and btab is not None and int(btab.n_rough) > 0
+    kcast = kernel_cast_ok(geo) if kernel_cast is None else bool(kernel_cast)
+    dkern = kcast and not slim and btab is not None and int(btab.n_rough) > 0
     bounds = host(geo.bounds)
     ax = int(geo.slice_axis)
     SV = int(geo.n_subvols)
@@ -289,13 +305,17 @@ def mega_config(geo, mat, btab, params, ecap: int, flip_axis: int | None = None)
         tau_tmin=float(tau_T[0]),
         tau_tmax=float(tau_T[-1]),
         ecap=int(ecap),
+        kernel_cast=kcast,
         # a second round resolves 2-bounce chains in-kernel on the mirror
-        # and in-kernel-diffuse paths (nanokappa_tpu/ops/megastep.py:1185)
-        rounds=2 if (slim or dkern) else 1,
+        # and in-kernel-diffuse paths; none runs without the in-kernel cast
+        # (an event's resolution needs a re-cast) (nanokappa_tpu/ops/megastep.py:1185)
+        rounds=(2 if (slim or dkern) else 1) if kcast else 0,
         dkern=dkern,
-        box=box_tables(geo) if geo.is_box else None,
-        facets=torch.as_tensor(_facet_table(geo, btab), device=d),
-        tris=empty.reshape(0, 10) if geo.is_box else tri_table(geo),
+        box=box_tables(geo) if (kcast and geo.is_box) else None,
+        facets=torch.as_tensor(
+            _facet_table(geo, btab) if kcast else np.zeros((0, FT_W), np.float32), device=d
+        ),
+        tris=tri_table(geo) if (kcast and not geo.is_box) else empty.reshape(0, 10),
         diff2=diff2,
         omega_vel=omega_vel,
         k2=k2,
@@ -393,15 +413,18 @@ def drift_megastep_plain(pool, T_sv, rta_on, cfg: MegaConfig, seed: int = 0):
     decay = torch.where(
         tau_ev > 0, torch.exp(_div(-dt, torch.clamp(tau_ev, min=1e-12))), 0.0
     )
-    fresh = cf == STALE
+    fresh = (cf == STALE) if cfg.kernel_cast else (t_coll < -0.5)
     do_rta = alive & ~fresh & bool(rta_on)
     dev = torch.where(do_rta, g + (dev - g) * decay, dev)
 
-    # ---- 2. stale-lane ray cast -------------------------------------------------
-    stale = alive & fresh
-    t_b, f_b = _cast(cfg, p, v, onf)
-    t_coll = torch.where(stale, t_b / dt, t_coll)
-    cf = torch.where(stale, f_b, cf)
+    # ---- 2. stale-lane ray cast, or the pre-cast flight time decoded -----------
+    if cfg.kernel_cast:
+        stale = alive & fresh
+        t_b, f_b = _cast(cfg, p, v, onf)
+        t_coll = torch.where(stale, t_b / dt, t_coll)
+        cf = torch.where(stale, f_b, cf)
+    else:
+        t_coll = torch.where(fresh, -t_coll - 1.0, t_coll)
 
     # ---- 3. drift -----------------------------------------------------------------
     sf = torch.where(alive, torch.minimum(t_coll, rem), 0.0)
@@ -509,12 +532,15 @@ def drift_megastep_plain(pool, T_sv, rta_on, cfg: MegaConfig, seed: int = 0):
     e_b = torch.where(
         alive_out, HBAR * omega * (dev - occupation_delta_T_k(T_b, t_ref, omega)), 0.0
     )
+    # the sums accumulate in float64 (the kernel's fixed-order float32 tree
+    # is close to exact; a float32 running sum over 1e6 lanes is not)
     vals = torch.stack([e_b, e_b * v[0], e_b * v[1], e_b * v[2], alive_out.float()], 1)
-    bins = torch.zeros((cfg.sv8 + 1, 5), dtype=torch.float32, device=dev_)
-    bins.index_add_(0, torch.where(alive_out, sv, cfg.sv8).long(), vals)
+    bins = torch.zeros((cfg.sv8 + 1, 5), dtype=torch.float64, device=dev_)
+    bins.index_add_(0, torch.where(alive_out, sv, cfg.sv8).long(), vals.double())
     led_vals = torch.stack(led, 1)
-    ledger = torch.zeros((R8, 5), dtype=torch.float32, device=dev_)
-    ledger.index_add_(0, led_seg.long(), led_vals)
+    ledger = torch.zeros((R8, 5), dtype=torch.float64, device=dev_)
+    ledger.index_add_(0, led_seg.long(), led_vals.double())
+    bins, ledger = bins.float(), ledger.float()
 
     cols = p + v + [
         omega, tau, dev, as_f32(mode), as_f32(cf), t_coll, as_f32(onf), rem,

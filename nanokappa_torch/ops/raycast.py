@@ -9,7 +9,10 @@ Torch twin of nanokappa_tpu/ops/raycast.py:
     (`_raycast_broadcast`) — because its TPU wants a dense lane dimension;
     here one (N, F) broadcast serves both, with the nearest valid hit and
     the first triangle winning a tie, as in either JAX form,
-  * larger meshes need kernel E (ROADMAP queue 2, E) and raise.
+  * larger meshes of up to 65,536 triangles: kernel E, the Morton-chunked
+    plane solve (ops/raycast_large.py; the JAX package's `raycast_pallas`
+    on its TPU and its `_raycast_broadcast` scan elsewhere). Beyond that
+    the cast raises, naming the ROADMAP item that ports it.
 The in-kernel cast of kernel A (csrc/megastep.cu) runs the same arithmetic
 per triangle in the same operation order, so `tri_cast` is also its plain
 twin.
@@ -49,13 +52,16 @@ def box_tables(geo: DeviceGeometry) -> tuple:
 def raycast(geo: DeviceGeometry, pos, vel, exclude_facet):
     if geo.is_box:
         return _raycast_box(geo, pos, vel, exclude_facet)
-    if geo.tri_origin.shape[0] > CHUNK_F:
+    if geo.tri_origin.shape[0] <= CHUNK_F:
+        return _raycast_tri(geo, pos, vel, exclude_facet)
+    from nanokappa_torch.ops.raycast_large import large_eligible, raycast_large
+
+    if not large_eligible(geo):
         raise NotImplementedError(
-            f"meshes of {geo.tri_origin.shape[0]} triangles (> {CHUNK_F}) need "
-            "the large-mesh cast, kernel E, which is not ported yet "
-            "(ROADMAP queue 1, item 11)"
+            f"meshes of {geo.tri_origin.shape[0]} triangles (> 65,536) need the "
+            "v1 step's cast, which is not ported yet (ROADMAP queue 1, item 11)"
         )
-    return _raycast_tri(geo, pos, vel, exclude_facet)
+    return raycast_large(geo, pos, vel, exclude_facet)
 
 
 def _raycast_box(geo, pos, vel, exclude_facet):

@@ -362,6 +362,39 @@ def _degen_partner(mat: Material) -> np.ndarray:
     return out
 
 
+def write_specular_correspondences(
+    btab: BoundaryTables, mat: Material, domain: Domain, folder: str
+):
+    """Dump the correspondence table in the reference's text format
+    (classes/Population.py:1461): rows of
+    'nx ny nz q_in j_in q_out j_out' per specularly-reflectable mode."""
+    import os
+
+    rough = domain.rough_facets
+    if len(rough) == 0:
+        return
+    normals = domain.mesh.facet_normals[rough]
+    rows_of = host(btab.row_of_rough)
+    corr = np.asarray(btab.corr)
+    J = mat.n_branches
+    seen = set()
+    lines = []
+    for i, f in enumerate(rough):
+        r = int(rows_of[i])
+        if r in seen:
+            continue
+        seen.add(r)
+        n = -normals[i]  # reference stores the inward normal
+        m_in = np.nonzero(corr[r] >= 0)[0]
+        m_out = corr[r][m_in]
+        for a, b in zip(m_in, m_out):
+            lines.append(
+                f"{n[0]:.3f} {n[1]:.3f} {n[2]:.3f} "
+                f"{a // J:d} {a % J:d} {b // J:d} {b % J:d}"
+            )
+    with open(os.path.join(folder, "specular_correspondences.txt"), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
 
 def build_boundary_tables(
     mat: Material,

@@ -15,7 +15,10 @@ Torch twin of nanokappa_tpu/sim/cascade.py (`run_event_buffer` :283 and
                won their specular Bernoulli in the kernel: round 1 takes
                that draw as THE draw instead of drawing again.
 Round 1 runs at buffer width; the few survivors are compacted (kernel C,
-ops/compact.py) into a narrow buffer for the remaining rounds.
+ops/compact.py) into a narrow buffer for the remaining rounds. With kernel
+A's cast off (meshes over 128 triangles) every boundary hit arrives here,
+absorbing and periodic ones included, and each round's re-cast goes
+through ops/raycast.py to kernel E.
 
 Rows are SoA (16, E): the drift kernel exports them in that layout.
 """

@@ -12,7 +12,13 @@ on two paths:
     TRI_KERNEL_MAX triangles (kernel A casts against the triangles) with
     rough eta > 0 walls, whose diffuse reflections kernel A draws itself
     and whose specular winners it exports flagged; the pool is the
-    "plain" 16-row layout with full cached lifetimes.
+    "plain" 16-row layout with full cached lifetimes,
+  * the kernel_cast-off path, e.g. an imported STL or a finely tessellated
+    primitive: a mesh of TRI_KERNEL_MAX to LARGE_TRI_MAX triangles. Kernel
+    A cannot cast there: injections are pre-cast at buffer width through
+    kernel E (ops/raycast_large.py), every boundary event exports — absorbing
+    and periodic ones too — and the narrow machinery re-casts through
+    kernel E; the "plain" pool.
 Reference semantics (classes/Population.py:1724-1769 run_timestep) with the
 JAX package's one reordering: the RTA scattering of step k runs at the
 START of step k+1's drift kernel ("deferred RTA"; `make_finalize` applies
@@ -52,12 +58,13 @@ from nanokappa_torch.sim.binning import (
 from nanokappa_torch.sim.boundary_tables import (
     BoundaryTables, combined_mirror_rows, slim_mirror_axis,
 )
+from nanokappa_torch.ops.raycast import raycast
 from nanokappa_torch.sim.cascade import run_event_buffer
 from nanokappa_torch.sim.reservoir import ReservoirTables, sample_injections
 from nanokappa_torch.sim.scatter import lifetime_by_sv, rta_scatter, slope_pair
 from nanokappa_torch.sim.state import (
-    C_ALIVE, C_DEV, C_MODE, C_OMEGA, C_POS, C_SV, C_TAU, C_VEL,
-    R_MMODE, R_TAUB, STALE, SimParams, SimState, as_f32, as_i32,
+    C_ALIVE, C_CF, C_DEV, C_MODE, C_OMEGA, C_ONF, C_POS, C_SV, C_TAU, C_TCOLL,
+    C_VEL, R_MMODE, R_TAUB, STALE, SimParams, SimState, as_f32, as_i32,
 )
 
 
@@ -68,6 +75,8 @@ def _todo(what: str, item: int):
 
 
 TRI_KERNEL_MAX = 128  # triangles kernel A casts against in-kernel
+LARGE_TRI_MAX = 65536  # meshes beyond TRI_KERNEL_MAX up to this run kernel
+#   A with kernel_cast off and kernel E (its 512-chunk bound)
 CMASK_ROWS = 32  # boundary-table rows the per-mode partner bitmask holds
 
 
@@ -135,19 +144,21 @@ def pool_layout(geo, btab, params: SimParams, mat) -> str:
 def require_slice(geo, btab, params: SimParams, mat) -> None:
     """Raise NotImplementedError, naming the ROADMAP item that ports it, for
     any configuration outside the ported paths: the film (box, eta = 0
-    walls, slim mirror) and the mirror-off path of kernel A (box or mesh of
-    <= TRI_KERNEL_MAX triangles, rough walls diffusing in-kernel)."""
+    walls, slim mirror), the mirror-off path of kernel A (box or mesh of
+    <= TRI_KERNEL_MAX triangles, rough walls diffusing in-kernel) and its
+    kernel_cast-off path (meshes of <= LARGE_TRI_MAX triangles)."""
     if params.n_shards != 1:
         raise _todo("particle-axis sharding (multi-GPU)", 12)
-    if not kernel_cast_ok(geo):
+    if not geo.is_box and int(geo.tri_origin.shape[0]) > LARGE_TRI_MAX:
         raise _todo(
-            f"meshes of more than {TRI_KERNEL_MAX} triangles (kernel_cast off, "
-            "kernel E)", 11,
+            f"meshes of more than {LARGE_TRI_MAX} triangles (the v1 step)", 11,
         )
     if geo.subvol_type != "slice":
         raise _todo(f"{geo.subvol_type!r} subvolumes", 10)
     if geo.n_subvols > 512:
         raise _todo(f"{geo.n_subvols} slices (the drift kernel takes 512)", 11)
+    if params.temp_interp == "radial":
+        raise _todo("temp_interp='radial' (the v1 step)", 11)
     if params.temp_interp != "nearest":
         raise _todo(f"temp_interp={params.temp_interp!r}", 10)
     if params.scat_model in ("k", "wavevector", "wave_vector"):
@@ -155,8 +166,10 @@ def require_slice(geo, btab, params: SimParams, mat) -> None:
     if geo.n_reservoirs > 0 and params.res_gen not in ("pooled", "constant"):
         raise _todo(f"reservoir_gen={params.res_gen!r}", 5)
     if geo.n_reservoirs > 7:
-        raise _todo(f"{geo.n_reservoirs} reservoirs (the ledger holds 7)", 10)
-    if btab is not None and int(btab.n_rows) > CMASK_ROWS:
+        # the JAX package runs these on its v1 step
+        raise _todo(f"{geo.n_reservoirs} reservoirs (the ledger holds 7; the v1 step)", 11)
+    if btab is not None and int(btab.n_rows) > CMASK_ROWS and dkern_active(geo, btab, params, mat):
+        # the partner bitmask serves in-kernel diffuse reflection only
         raise _todo(f"{btab.n_rows} rough-wall table rows (> {CMASK_ROWS})", 10)
     if mirror_eligible(geo, btab, params, mat) and slim_mirror_axis(geo, btab, mat) is None:
         raise _todo("the full 24-row mirror cache", 10)
@@ -196,7 +209,10 @@ def autosize_evt_cap(geo, mat, params: SimParams, use_mirror: bool, N_shard: int
     collision rate A_rough * vbar * dt / (4 V) per particle and step; with
     in-kernel diffuse reflection only the Bernoulli's specular winners
     (plus deep chains) export, so the rate is weighted by the largest
-    flux-weighted specular share over the wall rows, + 0.15."""
+    flux-weighted specular share over the wall rows, + 0.15. With
+    kernel_cast off every boundary hit exports, so the rate counts the
+    TOTAL boundary area, and the width is 1.25x the estimate: a buffer
+    margin (the JAX package takes 1.0x, unmeasured), not physics."""
     from nanokappa_torch.geometry.domain import BC
 
     if use_mirror:
@@ -207,7 +223,8 @@ def autosize_evt_cap(geo, mat, params: SimParams, use_mirror: bool, N_shard: int
     tri_f = host(geo.tri_facet)
     bc = host(geo.facet_bc)
     areas = 0.5 * np.linalg.norm(np.cross(host(geo.tri_e1), host(geo.tri_e2)), axis=1)
-    evt_area = float(areas[bc[tri_f] == int(BC.ROUGH)].sum())
+    kcast = kernel_cast_ok(geo)
+    evt_area = float(areas[bc[tri_f] == int(BC.ROUGH)].sum()) if kcast else float(areas.sum())
     if evt_area == 0.0:
         return floor
     ov = host(mat.omega_vel)
@@ -229,7 +246,7 @@ def autosize_evt_cap(geo, mat, params: SimParams, use_mirror: bool, N_shard: int
         floor = max(params.inj_cap, N_shard // 128)
         est = int(rate * N_shard * frac)
         return int(np.clip(est, floor, max(floor, N_shard // 8)))
-    est = int(rate * N_shard)
+    est = int(rate * N_shard * (1.0 if kcast else 1.25))
     return int(np.clip(est, floor, max(floor, N_shard // 8)))
 
 
@@ -297,6 +314,7 @@ def make_step_v2(
     from nanokappa_torch.sim.step import StepOutputs
 
     require_slice(geo, btab, params, mat)
+    kcast = kernel_cast_ok(geo)
     device = geo.device
     layout = pool_layout(geo, btab, params, mat)
     slim = layout == "slim"
@@ -348,6 +366,14 @@ def make_step_v2(
                 a_inj, b_inj = slope_pair(mat, state.T_sv, sv_inj, mode_inj)
                 rows[C_TAU] = a_inj
                 rows = torch.cat([rows, props[:, 5][None], b_inj[None]])
+            if not kcast:
+                # pre-cast at buffer width (kernel A cannot cast here):
+                # freshness rides the sign of C_TCOLL, t_enc = -t/dt - 1 < 0,
+                # with the real facet in C_CF, so the lane still skips the
+                # deferred RTA it predates
+                t_b, f_b = raycast(geo, rows[C_POS].T, rows[C_VEL].T, as_i32(rows[C_ONF]))
+                rows[C_TCOLL] = -(t_b / params.dt) - 1.0
+                rows[C_CF] = as_f32(f_b)
             if _append_window(pool, rows, lane_i < n_valid, tail):
                 tail += n_valid
                 lost_inj = dropped

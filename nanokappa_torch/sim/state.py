@@ -268,12 +268,15 @@ def init_state(
     positions: np.ndarray | None = None,
     modes: np.ndarray | None = None,
     occupation: np.ndarray | None = None,
+    empty_subvols=(),
 ) -> SimState:
     """The initial pool, built on the host exactly as the JAX package's
     init_state builds it (same NumPy draws in the same order), in the layout
     the step runs (sim/fused.py pool_layout): on "slim" with the mirror
     partner and slope-form lifetimes, on "plain" with full lifetimes. Then
-    moved to the geometry's device and given its first ray cast."""
+    moved to the geometry's device and given its first ray cast. A resumed
+    run passes the particles of a particle_data.txt as positions, modes and
+    occupation."""
     from nanokappa_torch.sim.boundary_tables import combined_mirror_rows
     from nanokappa_torch.sim.fused import pool_layout, require_slice
 
@@ -286,12 +289,30 @@ def init_state(
     SV = domain.n_of_subvols
 
     if positions is None:
-        if part_dist not in ("random_domain", "random_subvol"):
-            raise NotImplementedError(
-                f"part_dist={part_dist!r} is not ported yet "
-                "(ROADMAP queue 1, item 7)"
-            )
-        positions = domain.mesh.sample_volume(n_p, rng)
+        if part_dist in ("random_domain", "random_subvol"):
+            positions = domain.mesh.sample_volume(n_p, rng)
+            if len(empty_subvols):
+                # resample until no particle starts in an excluded subvolume
+                # (reference --empty_subvols, classes/Population.py:209-246)
+                empty = np.asarray(list(empty_subvols), dtype=int)
+                for _ in range(100):
+                    ids = nearest_center_ids(positions, domain.subvol_center)
+                    bad = np.isin(ids, empty)
+                    if not bad.any():
+                        break
+                    positions[bad] = domain.mesh.sample_volume(int(bad.sum()), rng)
+        elif part_dist == "center_domain":
+            positions = np.tile(domain.mesh.center_mass, (n_p, 1))
+        elif part_dist == "center_subvol":
+            # particles at each subvolume centre, proportional to its volume
+            # (reference classes/Population.py:248-268)
+            keep = np.ones(domain.n_of_subvols, dtype=bool)
+            keep[list(empty_subvols)] = False
+            vols = np.where(keep, domain.subvol_volume, 0.0)
+            counts = np.ceil(n_p * vols / vols.sum()).astype(int)
+            positions = np.repeat(domain.subvol_center, counts, axis=0)[:n_p]
+        else:
+            raise ValueError(f"unknown part_dist '{part_dist}'")
     if modes is None:
         modes = initial_modes(n_p, mat)
 

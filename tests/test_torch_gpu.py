@@ -203,3 +203,151 @@ def test_cuda_megastep_matches_plain(cuda, rta_on):
         a, b = a.double().cpu(), b.double().cpu()
         scale = b.abs().sum(0, keepdim=True) + b.abs().max()
         assert bool(((a - b).abs() <= 1e-5 * b.abs() + 1e-5 * scale).all())
+
+
+def _cylinder(device, n_side=96):
+    """The 96-sided cylinder (384 triangles: kernel_cast off, kernel E) at
+    4^3, 2 slices, its pool compacted."""
+    from nanokappa_torch.geometry.device import build_device_geometry
+    from nanokappa_torch.geometry.domain import build_domain
+    from nanokappa_torch.material import synthetic_material
+    from nanokappa_torch.ops.compact_pool import compact_pool_plain
+    from nanokappa_torch.sim.boundary_tables import build_boundary_tables
+    from nanokappa_torch.sim.state import SimParams, init_state, particle_count
+
+    mat = synthetic_material(mesh=(4, 4, 4))
+    dom = build_domain(
+        geometry="cylinder", dimensions=(2e3, 500.0, n_side), subvolumes=("slice", 2, 2),
+        bound_pos=("relative", 0.5, 0.5, -0.1, 0.5, 0.5, 1.1),
+        bound_cond=("T", "T", "R"), bound_values=(302.0, 298.0, 2.0),
+    )
+    n_p, rho = particle_count(("total", 3000), mat, dom)
+    params = SimParams(
+        dt=1.0, n_cap=4096, inj_cap=512, temp_interp="nearest", res_gen="pooled",
+        particle_density=rho, n_active_modes=mat.n_active_modes, t_reference=300.0,
+    )
+    geo = build_device_geometry(dom, device)
+    btab = build_boundary_tables(mat, dom, device=device)
+    state = init_state(mat, dom, geo, params, n_p, btab, temp_dist="linear", seed=3)
+    pool, _ = compact_pool_plain(state.pool)
+    return mat, geo, btab, params, pool, state.T_sv
+
+
+@pytest.mark.gpu
+def test_cuda_raycast_large_matches_plain(cuda):
+    """Kernel E against its twin: pool rays, rays with zero velocity
+    components, excluded facets, and rays aimed at triangle vertices (ties
+    between triangles); t and facet bit for bit."""
+    from nanokappa_torch.ops import raycast_large as rl
+
+    _, geo, _, _, pool, _ = _cylinder(cuda)
+    pos = pool[0:3].T.contiguous()
+    vel = pool[3:6].T.contiguous()
+    vel[::7, 2] = 0.0
+    vel[1::7, :2] = 0.0
+    ex = pool[12].contiguous().view(torch.int32).clone()
+    verts = geo.tri_origin[::3]
+    vpos = pos[: verts.shape[0]].clone()
+    vpos[:, 2] = verts[:, 2]  # aim across the cross-section at a vertex
+    pos = torch.cat([pos, vpos])
+    vel = torch.cat([vel, (verts - vpos) / 3.0])
+    ex = torch.cat([ex, torch.full((verts.shape[0],), -1, dtype=torch.int32, device=cuda)])
+    n0 = rl.launches
+    tk, fk = rl.raycast_large(geo, pos, vel, ex)
+    assert rl.launches == n0 + 1
+    tp, fp = rl.raycast_large_plain(rl.prep(geo), pos, vel, ex)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(tk), _bits(tp)) and torch.equal(fk.cpu(), fp.cpu())
+    # the strided (3, N).T view takes the same path
+    tk2, fk2 = rl.raycast_large(geo, pool[0:3].T, pool[3:6].T, pool[12].contiguous().view(torch.int32))
+    tp2, fp2 = rl.raycast_large_plain(rl.prep(geo), pool[0:3].T, pool[3:6].T,
+                                      pool[12].contiguous().view(torch.int32))
+    assert torch.equal(_bits(tk2), _bits(tp2)) and torch.equal(fk2.cpu(), fp2.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rta_on", [False, True])
+def test_cuda_megastep_precast_matches_plain(cuda, rta_on):
+    """Kernel A's kernel_cast-off branch against its twin on the cylinder's
+    pool with 5% of the lanes pre-cast."""
+    from nanokappa_torch.ops.megastep import drift_megastep, drift_megastep_plain, mega_config
+    from nanokappa_torch.ops.raycast import raycast
+    from nanokappa_torch.sim.fused import event_window
+
+    mat, geo, btab, params, pool, T_sv = _cylinder(cuda)
+    tabs = mat.device_tables(cuda)
+    alive = torch.nonzero(pool[14] > 0.5).flatten()
+    pre = alive[::20]
+    t, f = raycast(geo, pool[0:3, pre].T, pool[3:6, pre].T, pool[12, pre].contiguous().view(torch.int32))
+    pool[11, pre] = -t - 1.0
+    pool[10, pre] = f.view(torch.float32)
+    cfg = mega_config(geo, tabs, btab, params, event_window(geo, tabs, btab, params))
+    assert not cfg.kernel_cast
+    pk, pp = pool.clone(), pool.clone()
+    rk, ik, ck, lk, bk = drift_megastep(pk, T_sv, rta_on, cfg)
+    rp, ip, cp, lp, bp = drift_megastep_plain(pp, T_sv, rta_on, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(ck, cp) and int(cp[2]) > 0, (ck, cp)
+    ints = INT_ROWS[:-1]
+    for r in ints:
+        assert torch.equal(_bits(pk[r]), _bits(pp[r])), r
+    _close_rows(pk, pp, FLOAT_ROWS[:-1])
+    k = int(cp[2])
+    assert torch.equal(ik, ip)
+    for r in ints:
+        assert torch.equal(_bits(rk[r, :k]), _bits(rp[r, :k])), r
+    _close_rows(rk[:, :k], rp[:, :k], FLOAT_ROWS[:-1])
+    assert not bool(lk.any()) and not bool(lp.any())
+    a, b = bk.double().cpu(), bp.double().cpu()
+    scale = b.abs().sum(0, keepdim=True) + b.abs().max()
+    assert bool(((a - b).abs() <= 1e-5 * b.abs() + 1e-5 * scale).all())
+
+
+@pytest.mark.gpu
+def test_cuda_raycast_large_skip_keeps_results(cuda):
+    """Kernel E's block-wide chunk skip on a mesh whose Morton chunks are
+    local: the 96-sided cylinder cut into 16 rings along its axis (3,264
+    triangles, 26 chunks). Each block of 256 rays starts near the axis and
+    aims at one vertex (every other block grazes around it), so blocks skip
+    most chunks; t and facet stay bit-equal to the twin, which skips none."""
+    from types import SimpleNamespace
+
+    from nanokappa_torch.geometry.primitives import make_primitive
+    from nanokappa_torch.ops import raycast_large as rl
+
+    mesh = make_primitive("zigzag", (250.0, 500.0, 0.0, 0.0, 96, 16))
+    tri = mesh.tri
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=cuda)
+
+    geo = SimpleNamespace(
+        is_box=False, device=cuda, tri_origin=f32(tri[:, 0]), tri_e1=f32(tri[:, 1] - tri[:, 0]),
+        tri_e2=f32(tri[:, 2] - tri[:, 0]),
+        tri_facet=torch.as_tensor(mesh.face_facet.astype(np.int32), device=cuda),
+    )
+    rng = np.random.default_rng(17)
+    pos, vel, ex = [], [], []
+    for b in range(64):
+        target = mesh.vertices[rng.integers(len(mesh.vertices))]
+        r, a = 100.0 * np.sqrt(rng.random(256)), 2 * np.pi * rng.random(256)
+        z = np.clip(target[2] + rng.normal(0.0, 30.0, 256), 1.0, 3999.0)
+        p = np.stack([r * np.cos(a), r * np.sin(a), z], axis=1)
+        d = target[None, :] - p
+        if b % 2:
+            d = d + rng.normal(0.0, 2.0, d.shape)
+        e = np.full(256, -1)
+        e[::5] = rng.integers(0, mesh.face_facet.max() + 1, 52)
+        pos.append(p), vel.append(d / 5.0), ex.append(e)
+    pos, vel = f32(np.concatenate(pos)), f32(np.concatenate(vel))
+    ex = torch.as_tensor(np.concatenate(ex).astype(np.int32), device=cuda)
+    tabs = rl.prep(geo)
+    assert tabs.nc == 26
+    solved = torch.zeros(64, dtype=torch.int32, device=cuda)
+    tk, fk = rl.raycast_large(geo, pos, vel, ex, solved=solved)
+    tp, fp = rl.raycast_large_plain(tabs, pos, vel, ex)
+    torch.cuda.synchronize()
+    print(f"chunks solved per block {float(solved.float().mean()):.3f} of {tabs.nc}")
+    assert float(solved.float().mean()) < tabs.nc / 2, solved
+    assert torch.equal(_bits(tk), _bits(tp)) and torch.equal(fk.cpu(), fp.cpu())
+    assert int((fp >= 0).sum()) > 0.99 * len(fp)

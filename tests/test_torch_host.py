@@ -132,8 +132,8 @@ def test_tables_convert_from_jax(pair):
 
 
 def test_port_imports_without_jax():
-    """`import nanokappa_torch.sim.step` (and the kernels) with jax blocked:
-    the port never reaches jax or the JAX package."""
+    """`import nanokappa_torch.sim.step`, the kernels, the driver and the
+    CLI with jax blocked: the port never reaches jax or the JAX package."""
     code = (
         "import sys\n"
         "for k in [k for k in sys.modules if k == 'jax' or k.startswith('jax.')]:\n"
@@ -145,6 +145,8 @@ def test_port_imports_without_jax():
         "import nanokappa_torch.ops.raycast, nanokappa_torch.sim.reservoir\n"
         "import nanokappa_torch.sim.fused, nanokappa_torch.sim.cascade\n"
         "import nanokappa_torch.sim.state, nanokappa_torch.sim.scatter\n"
+        "import nanokappa_torch.ops.raycast_large, nanokappa_torch.sim.repair\n"
+        "import nanokappa_torch.driver, nanokappa_torch.cli, nanokappa_torch.io.trace\n"
         "bad = [k for k in sys.modules if k.startswith('nanokappa_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"

@@ -162,7 +162,10 @@ def test_constant_positions_cover_the_caps_by_area(wire):
     (dict(params=dict(scat_model="k")), 10),
     (dict(params=dict(n_shards=2)), 12),
     (dict(geo=dict(subvol_type="grid")), 10),
-    (dict(geo=dict(tri_origin=torch.zeros((200, 3)))), 11),
+    # (the id is kept from when meshes over 128 triangles raised; they now
+    # run kernel A with kernel_cast off, and only meshes beyond kernel E's
+    # 65,536 triangles raise)
+    (dict(geo=dict(tri_origin=torch.zeros((65537, 3)))), 11),
 ], ids=["fixed_rate", "one_to_one", "linear_interp", "k_model", "two_shards", "grid", "200_triangles"])
 def test_configs_outside_the_ported_paths_raise(wire, change, item):
     """Every configuration the port does not run yet raises, naming the

@@ -69,6 +69,8 @@ def test_raycast_matches_jax(sides):
 
 
 def test_raycast_beyond_256_triangles_raises():
+    """Beyond 256 triangles the dispatch takes kernel E; beyond its 512
+    chunks (65,536 triangles) the cast raises, naming ROADMAP item 11."""
     import dataclasses
 
     from nanokappa_torch.geometry.device import build_device_geometry
@@ -76,7 +78,7 @@ def test_raycast_beyond_256_triangles_raises():
     from nanokappa_torch.ops.raycast import raycast
 
     geo = build_device_geometry(build_domain(**WIRE), device="cpu")
-    geo = dataclasses.replace(geo, tri_origin=torch.zeros((257, 3)))
+    geo = dataclasses.replace(geo, tri_origin=torch.zeros((65537, 3)))
     z = torch.zeros((4, 3))
     with pytest.raises(NotImplementedError, match="item 11"):
         raycast(geo, z, z, torch.zeros(4, dtype=torch.int32))
