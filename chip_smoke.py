@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (`nanokappa_torch`).
 
-    python3 chip_smoke.py     # the film, the nanowire and the large mesh, 1e6 particles, 31^3 table
+    python3 chip_smoke.py     # film, nanowire, k film, plate, large mesh: 1e6 particles, 31^3 table
 
 Needs one CUDA card. In order it:
   1. prints the card's name and power limit (nvidia-smi),
@@ -24,7 +24,23 @@ Needs one CUDA card. In order it:
      pool = round_pool_cap(1.25 N), n_inner = n_outer = 10, 2 warm-up and
      3 timed runs — with every kernel's launch counter zeroed just before
      and read just after, and checks the physics of each,
-  6. drives the large mesh (bench.py:build_bigmesh_ctx: a 96-sided
+  6. drives the film with linear temperatures and the film re-binned by a
+     `grid 16 4 4` domain (256 centres) for 100 steps each, kernel A's
+     slice/linear and centre/nearest instantiations on the slim pool, both
+     held against their twins on the film's pool first,
+  7. drives the k-model, linear-temperature film (the bench film with
+     eta = 2 A walls: off the mirror path; the bench film's eta = 0 k map
+     is checked to be mirror-eligible, which the port still refuses) like
+     step 5, counts the narrow machinery's degenerate-branch swaps, and
+     holds kernel A's linear in-kernel-diffuse instantiation against its
+     twin on its pool,
+  8. drives the perforated plate (BASELINE config 4: a 32-triangle STL
+     written into the run's folder, Voronoi 8 subvolumes, 'constant'
+     reservoirs) through the driver entry, `Simulation(read_args(argv),
+     material=mat).run()`, for 300 steps at 10^6 particles, with its
+     physics and result-file gates, and holds kernel A's nearest-centre
+     instantiation against its twin on its pool,
+  9. drives the large mesh (bench.py:build_bigmesh_ctx: a 96-sided
      cylinder, 384 triangles, 'constant' reservoirs; kernel A with
      kernel_cast off and kernel E) through the driver entry a user runs,
      `Simulation(read_args(argv), material=mat).run()`, for 500 steps at
@@ -78,6 +94,23 @@ WIRE = dict(
 # cylinder (384 triangles, 98 facets), beyond kernel A's in-kernel cast
 BIGMESH = dict(WIRE, dimensions=(4e3, 500.0, 96))
 BIG_STEPS = 500
+# the bench film with eta = 2 A walls under the k model and linear
+# temperatures: off the mirror path (specularity < 1), kernel A's plain
+# in-kernel-diffuse pool on the box cast
+KFILM = dict(FILM, bound_values=(302.0, 298.0, 2.0, 2.0))
+# the perforated plate of tests/test_porous.py (BASELINE config 4):
+# 3000 x 3000 x 1000 A with a 1200 A square hole through z, 32 triangles,
+# Voronoi 8, T reservoirs on the two x faces, every other facet rough at
+# eta = 5 A (the hole's walls too)
+PLATE = dict(
+    subvolumes=("voronoi", 8),
+    bound_pos=("relative", -0.1, 0.5, 0.5, 1.1, 0.5, 0.5),
+    bound_cond=("T", "T", "R"),
+    bound_values=(304.0, 296.0, 5.0),
+    connect_pos=("relative",),
+)
+PLATE_STEPS = 300
+GRID = (16, 4, 4)  # the film re-binned: 256 centres, the nearest-centre loop's cap
 
 
 def card_line() -> str:
@@ -88,13 +121,14 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def build_ctx(mat, domain_kw: dict, device):
+def build_ctx(mat, domain_kw: dict, device, scat_model: str = "velocity"):
     from nanokappa_torch.geometry.device import build_device_geometry
     from nanokappa_torch.geometry.domain import build_domain
     from nanokappa_torch.sim.boundary_tables import build_boundary_tables
 
     dom = build_domain(**domain_kw)
-    return dom, build_device_geometry(dom, device), build_boundary_tables(mat, dom, device=device)
+    return (dom, build_device_geometry(dom, device),
+            build_boundary_tables(mat, dom, scat_model, device=device))
 
 
 def run_params(mat, dom, n_particles: float, res_gen: str, device):
@@ -226,6 +260,7 @@ def check_megastep(name, pool_c, T_sv, cfg, seed, source_ops):
     import torch
 
     from nanokappa_torch.ops import megastep
+    from nanokappa_torch.ops.megastep import R8, SV_CENTER
     from nanokappa_torch.sim.state import C_ALIVE, C_CF, C_MODE, C_ONF, C_SV, R_MMODE
 
     int_rows = [C_MODE, C_CF, C_ONF, C_SV, C_ALIVE] + ([R_MMODE] if cfg.layout == "slim" else [])
@@ -256,7 +291,18 @@ def check_megastep(name, pool_c, T_sv, cfg, seed, source_ops):
     C, N = pool_c.shape
     n_alive = int((pool_c[C_ALIVE] > 0.5).sum())
     n_bytes = 2 * C * N * 4 + C * cfg.ecap * 4 + cfg.ecap * 4
-    b_ms, b_by = bound(n_bytes, n_alive * 150 + source_ops)
+    n_ops = n_alive * 150 + source_ops
+    if cfg.sv_mode == SV_CENTER:
+        # the nearest-centre loop, before and after the drift: 7 operations
+        # a centre
+        n_ops += n_alive * cfg.sv * 2 * 7
+    b_ms, b_by = bound(n_bytes, n_ops)
+    # the design's own scratch (not in the bound): per-block partial sums,
+    # written by the lanes launch and read by the reductions
+    nb = -(-N // 256)
+    print(f"  {name}: {cfg.sv} subvolumes (mode {cfg.sv_mode}), pool {C} x {N}, bytes "
+          f"{n_bytes / 1e6:.1f} MB, operations {n_ops / 1e9:.3f} G, partial sums "
+          f"{nb * (2 * cfg.sv8 + R8) * 5 * 4 / 1e6:.1f} MB each way", flush=True)
     return dict(
         name=name, route="cuda", source="nanokappa_torch/csrc/megastep.cu",
         replaces="nanokappa_tpu/ops/megastep.py:1358", max_abs_err=err, match=how,
@@ -373,9 +419,10 @@ def small_check(device, domain_kw, subvol_temp, tol):
 def main_path(name, mat, dom, geo, btab, rtab, params, n_p, tabs, card):
     """Drive one configuration through init_state -> build_step -> run with
     the launch counters zeroed just before and read just after: 2 warm-up
-    and 3 timed runs of 10 x 10 steps. Returns (out, n0, launches, events)
-    with events = kernel A's [in-kernel diffuse re-emissions, flagged
-    specular exports] over the 500 steps."""
+    and 3 timed runs of 10 x 10 steps. Returns (out, n0, launches, events,
+    state) with events = [kernel A's in-kernel diffuse re-emissions, its
+    flagged specular exports, the narrow machinery's k-model swaps] over
+    the 500 steps."""
     import torch
 
     from nanokappa_torch.ops import compact, compact_pool, megastep
@@ -404,10 +451,191 @@ def main_path(name, mat, dom, geo, btab, rtab, params, n_p, tabs, card):
     print(f"{name}: T_sv {[round(float(t), 3) for t in out.T_sv[-1].cpu()]}", flush=True)
     print(f"{name}: N_p {n_alive} (start {n0}), lost {out.lost_split[-1].tolist()}, "
           f"frozen {int(out.frozen[-1])}, launches {launches}, "
-          f"in-kernel diffuse {events[0]}, flagged specular exports {events[1]}", flush=True)
+          f"in-kernel diffuse {events[0]}, flagged specular exports {events[1]}, "
+          f"k-model swaps {events[2]}", flush=True)
     print(f"{name}: {ups:.4g} updates/s ({elapsed / (n_runs * 100) * 1e3:.3f} ms/step) on {card}",
           flush=True)
-    return out, n0, launches, events
+    return out, n0, launches, events, state
+
+
+def perforated_plate(L=3e3, W=3e3, H=1e3, a=600.0):
+    """The plate of tests/test_porous.py: an L x W x H box with a square
+    hole of side 2a through z at its centre (32 triangles)."""
+    import numpy as np
+
+    from nanokappa_torch.geometry.mesh import TriMesh
+
+    cx, cy = L / 2, W / 2
+    O = [(0, 0), (L, 0), (L, W), (0, W)]
+    I = [(cx - a, cy - a), (cx + a, cy - a), (cx + a, cy + a), (cx - a, cy + a)]
+    v = []
+    for z in (0.0, H):
+        v += [(x, y, z) for x, y in O]
+    for z in (0.0, H):
+        v += [(x, y, z) for x, y in I]
+    v = np.array(v, dtype=float)
+    OB, OT, IB, IT = 0, 4, 8, 12
+    faces = []
+    for k in range(4):
+        k2 = (k + 1) % 4
+        faces += [[OB + k, IB + k, OB + k2], [OB + k2, IB + k, IB + k2]]
+        faces += [[OT + k, OT + k2, IT + k], [OT + k2, IT + k2, IT + k]]
+        faces += [[OB + k, OB + k2, OT + k], [OB + k2, OT + k2, OT + k]]
+        faces += [[IB + k, IT + k, IB + k2], [IB + k2, IT + k, IT + k2]]
+    return TriMesh(v, np.array(faces))
+
+
+def plate_argv(folder: str, stl_path: str, device) -> list[str]:
+    """The plate as CLI arguments, sized as bench.py:run_config sizes a
+    cell (10^6 particles, pool margin 1.25, nearest temperatures, linear
+    initial profile, 'constant' reservoirs)."""
+    def words(v):
+        return [str(x) for x in v]
+
+    b = PLATE
+    return [
+        "--mat_folder", ".", "--hdf_file", "synthetic", "--poscar_file", "synthetic",
+        "--geometry", stl_path, "--subvolumes", *words(b["subvolumes"]),
+        "--bound_pos", *words(b["bound_pos"]), "--bound_cond", *b["bound_cond"],
+        "--bound_values", *words(b["bound_values"]), "--connect_pos", *words(b["connect_pos"]),
+        "--temp_dist", "linear", "--temp_interp", "nearest",
+        "--particles", "total", f"{PARTICLES:.0f}", "--pool_margin", "1.25",
+        "--timestep", "1", "--iterations", str(PLATE_STEPS), "--reservoir_gen", "constant",
+        "--seed", str(SEED), "--results_folder", folder, "--output", "screen",
+        "--device", str(device),
+    ]
+
+
+def plate_main(mat, card, device):
+    """The plate through the driver: its STL written into the run's folder,
+    the launch counters zeroed just before the Simulation is built and read
+    after its run. Returns (sim, its folder, launches, checks)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nanokappa_torch.driver import Simulation
+    from nanokappa_torch.geometry import stl
+    from nanokappa_torch.io.config import read_args
+    from nanokappa_torch.ops import compact, compact_pool, megastep
+    from nanokappa_torch.sim.fused import event_window
+    from nanokappa_torch.sim.state import C_ALIVE
+
+    td = tempfile.mkdtemp(prefix="chip_smoke_plate_")
+    stl_path = os.path.join(td, "plate.stl")
+    stl.save_stl(perforated_plate(), stl_path)
+    mods = (megastep, compact_pool, compact)
+    for m in mods:
+        m.launches = 0
+    t0 = time.perf_counter()
+    sim = Simulation(read_args(plate_argv(os.path.join(td, "res"), stl_path, device)), material=mat)
+    t_setup = time.perf_counter() - t0
+    sim.run(verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {m.__name__.rsplit(".", 1)[1]: m.launches for m in mods}
+
+    tm = sim.timer
+    row = sim.window[-1]
+    n0, n_alive = sim.n_p_target, int(row["N_p"])
+    lost, T = row["lost_split"], row["T"]
+    steps_t = tm.calls["device_step"][-2:]
+    ups = n_alive * 200 / sum(steps_t)
+    evt = event_window(sim.geo, sim.mtab, sim.btab, sim.params)
+    pool = sim.state.pool
+    alive = pool[C_ALIVE] > 0.5
+    x, y = pool[0][alive], pool[1][alive]
+    hole = ((x - 1500.0).abs() < 590.0) & ((y - 1500.0).abs() < 590.0)
+    in_hole = float(hole.sum()) / max(1, int(alive.sum()))
+    cx = sim.domain.subvol_center[:, 0]
+    events = sim.state.kernel_events.tolist()
+    print(f"plate: {sim.geo.tri_origin.shape[0]} triangles, {sim.geo.n_facets} facets, "
+          f"{sim.geo.n_subvols} {sim.geo.subvol_type} subvolumes, layout {sim.state.layout}, "
+          f"{sim.btab.n_rows} boundary-table rows, {n0} particles, pool {sim.params.n_cap}, "
+          f"inj_cap {sim.params.inj_cap}, evt_cap {evt} (regrows {sim.evt_regrows})", flush=True)
+    print(f"plate: centres x {[round(float(c), 1) for c in cx]}", flush=True)
+    print(f"plate: T_sv {[round(float(t), 3) for t in T]}", flush=True)
+    print(f"plate: N_p {n_alive} (start {n0}), lost {lost.tolist()}, frozen {row['frozen']}, "
+          f"escaped {sim.n_escaped_total}, in the hole {in_hole:.3g} of the alive lanes, "
+          f"launches {launches}, in-kernel diffuse {events[0]}, flagged specular exports "
+          f"{events[1]}", flush=True)
+    print(f"plate: {ups:.4g} updates/s ({sum(steps_t) / 200 * 1e3:.3f} ms/step, device_step "
+          f"of the last 2 blocks) on {card}; driver wall {wall:.1f} s (setup {t_setup:.1f} s)",
+          flush=True)
+    print("plate: " + tm.report().replace("\n", "\nplate: "), flush=True)
+
+    def rows_of(name):
+        with open(os.path.join(sim.folder, name)) as f:
+            return [line for line in f.read().splitlines() if not line.startswith("#")]
+
+    sv_rows, con_rows = rows_of("subvolumes.txt"), rows_of("subvol_connections.txt")
+    checks = {
+        "plate: nothing dropped or defective": lost[0] == 0 and lost[2] == 0,
+        "plate: k_max-stuck <= 1e-6 per particle-step": lost[1] <= 1e-6 * n0 * PLATE_STEPS,
+        "plate: frozen under 1% of N": int(row["frozen"]) < 0.01 * n0,
+        "plate: population within 5%": abs(n_alive - n0) <= 0.05 * n0,
+        "plate: T_sv in (295.9, 304.1)": bool(((T > 295.9) & (T < 304.1)).all()),
+        "plate: smallest-x cell hotter than largest-x cell": bool(T[np.argmin(cx)] > T[np.argmax(cx)]),
+        "plate: under 1% of the alive lanes in the hole": in_hole < 0.01,
+        "plate: A, B, C launched": all(v > 0 for v in launches.values()),
+        f"plate: {PLATE_STEPS} steps run": sim.current_timestep == PLATE_STEPS,
+        "plate: subvolumes.txt in the JAX driver's columns": len(sv_rows) == sim.geo.n_subvols
+        and all(len(r.split(",")) == 13 for r in sv_rows),
+        "plate: subvol_connections.txt in the JAX driver's columns":
+        len(con_rows) == len(sim.domain.subvol_connections) > 0
+        and all(len(r.split(",")) == 12 for r in con_rows),
+    }
+    return sim, td, launches, checks
+
+
+def grid_film(f_dom, device):
+    """The film's domain and geometry re-binned by a GRID of centres (the
+    `grid_centers` in build_domain's order; a box's cells have equal volumes)."""
+    import dataclasses
+
+    import numpy as np
+
+    from nanokappa_torch.geometry.device import build_device_geometry
+    from nanokappa_torch.geometry.subvolumes import grid_centers
+
+    mesh = f_dom.mesh
+    c = grid_centers(mesh, np.asarray(GRID))
+    c = c[np.lexsort((c[:, 2], c[:, 1], c[:, 0]))]
+    dom = dataclasses.replace(
+        f_dom, subvol_type="grid", slice_axis=0, subvol_center=c,
+        subvol_volume=np.full(len(c), mesh.volume / len(c)),
+        subvol_connections=np.zeros((0, 2), np.int64), grid=np.asarray(GRID),
+    )
+    return dom, build_device_geometry(dom, device)
+
+
+def short_path(name, mat, dom, geo, btab, rtab, params, n_p, tabs, card):
+    """100 steps of one configuration through init_state -> build_step ->
+    run (10 x 10, after no warm-up) with kernel A's counter zeroed just
+    before and read just after. Returns (out, n0, kernel A launches)."""
+    import torch
+
+    from nanokappa_torch.ops import megastep
+    from nanokappa_torch.sim.state import init_state
+    from nanokappa_torch.sim.step import build_step
+
+    state = init_state(mat, dom, geo, params, n_p, btab, temp_dist="linear", seed=SEED)
+    n0 = int(state.alive.sum())
+    run = build_step(geo, tabs, btab, rtab, params, n_inner=10, n_outer=10)
+    megastep.launches = 0
+    t0 = time.perf_counter()
+    state, out = run(state)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    n = megastep.launches
+    print(f"{name}: T_sv {[round(float(t), 3) for t in out.T_sv[-1][:10].cpu()]}"
+          f"{' ...' if geo.n_subvols > 10 else ''}", flush=True)
+    print(f"{name}: N_p {int(out.N_p[-1])} (start {n0}), lost {out.lost_split[-1].tolist()}, "
+          f"frozen {int(out.frozen[-1])}, kernel A launches {n}, "
+          f"{100 * int(out.N_p[-1]) / elapsed:.4g} updates/s on {card}", flush=True)
+    return out, n0, n
 
 
 def bigmesh_argv(folder: str, device) -> list[str]:
@@ -616,11 +844,13 @@ def main(device=None) -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — needs a CUDA card")
+    import dataclasses
+
     from nanokappa_torch.material import synthetic_material
     from nanokappa_torch.ops import _cuda
     from nanokappa_torch.ops.megastep import mega_config
-    from nanokappa_torch.sim.boundary_tables import slim_mirror_axis
-    from nanokappa_torch.sim.fused import event_window, mirror_eligible
+    from nanokappa_torch.sim.boundary_tables import build_boundary_tables, slim_mirror_axis
+    from nanokappa_torch.sim.fused import event_window, mirror_eligible, require_slice
     from nanokappa_torch.sim.reservoir import constant_counts
     from nanokappa_torch.sim.state import C_CF, C_ALIVE, STALE, init_state
     from nanokappa_torch.sim.step import build_step
@@ -660,8 +890,19 @@ def main(device=None) -> None:
     w_cfg = mega_config(w_geo, tabs, w_btab, w_params, w_evt)
     f_pool, w_pool = with_fresh(f_pre.pool, device), with_fresh(w_pre.pool, device)
     n_fresh = int(((w_pool[C_CF].view(torch.int32) == STALE) & (w_pool[C_ALIVE] > 0.5)).sum())
+    # the film's pool under linear temperatures, and re-binned by the
+    # 256-centre grid (slim, the nearest-centre loop at its cap)
+    fl_params = dataclasses.replace(f_params, temp_interp="linear")
+    fl_cfg = mega_config(f_geo, tabs, f_btab, fl_params, f_evt, slim_mirror_axis(f_geo, f_btab, tabs))
+    g_dom, g_geo = grid_film(f_dom, device)
+    g_cx = g_geo.subvol_center[:, 0]
+    g_T = 302.0 - 4.0 * (g_cx - g_cx.min()) / (g_cx.max() - g_cx.min())
+    g_cfg = mega_config(g_geo, tabs, f_btab, f_params, f_evt, slim_mirror_axis(f_geo, f_btab, tabs))
     recs = {
         "film": check_megastep("drift_megastep[film]", f_pool, f_pre.T_sv, f_cfg, 1, 0),
+        "film_linear": check_megastep("drift_megastep[film linear]", f_pool, f_pre.T_sv, fl_cfg, 1, 0),
+        "film_centre256": check_megastep("drift_megastep[film centre 256]", f_pool, g_T.contiguous(),
+                                         g_cfg, 1, 0),
         "wire": check_megastep("drift_megastep[wire]", w_pool, w_pre.T_sv, w_cfg, 2,
                                n_fresh * 45 * w_cfg.tris.shape[0]),
         "pool": check_compact_pool([f_pre.pool, w_pre.pool]),
@@ -699,7 +940,7 @@ def main(device=None) -> None:
 
     # ---- the main paths ---------------------------------------------------------
     checks = {}
-    out, n0, f_launch, _ = main_path("film", mat, f_dom, f_geo, f_btab, f_rtab, f_params, f_np, tabs, card)
+    out, n0, f_launch, _, _ = main_path("film", mat, f_dom, f_geo, f_btab, f_rtab, f_params, f_np, tabs, card)
     T = out.T_sv[-1].cpu().numpy()
     n_alive, lost = int(out.N_p[-1]), out.lost_split[-1].tolist()
     checks.update({
@@ -709,7 +950,7 @@ def main(device=None) -> None:
         "film: T_sv hot end > cold end": bool(T[0] > T[-1]),
         "film: A, B, C launched": all(v > 0 for v in f_launch.values()),
     })
-    out, n0, w_launch, events = main_path("wire", mat, w_dom, w_geo, w_btab, w_rtab, w_params, w_np, tabs, card)
+    out, n0, w_launch, events, _ = main_path("wire", mat, w_dom, w_geo, w_btab, w_rtab, w_params, w_np, tabs, card)
     T = out.T_sv[-1].cpu().numpy()
     n_alive, lost = int(out.N_p[-1]), out.lost_split[-1].tolist()
     checks.update({
@@ -730,8 +971,102 @@ def main(device=None) -> None:
     del out
     torch.cuda.empty_cache()
 
-    # ---- the large mesh through the driver, then its kernel checks -----------
+    # ---- the film with linear temperatures, and on 256 grid centres ----------
+    out, n0, fl_launch = short_path("film linear", mat, f_dom, f_geo, f_btab, f_rtab, fl_params,
+                                    f_np, tabs, card)
+    T = out.T_sv[-1].cpu().numpy()
+    checks.update({
+        "film linear: lost == 0": int(out.lost[-1]) == 0,
+        "film linear: population within 5%": abs(int(out.N_p[-1]) - n0) <= 0.05 * n0,
+        "film linear: T_sv in (298, 302), hot end > cold end":
+        bool(((T > 298.0) & (T < 302.0)).all() and T[0] > T[-1]),
+        "film linear: A launched": fl_launch > 0,
+    })
+    out, n0, g_launch = short_path("film centre 256", mat, g_dom, g_geo, f_btab, f_rtab, f_params,
+                                   f_np, tabs, card)
+    T = out.T_sv[-1].cpu().numpy()
+    checks.update({
+        "film centre 256: lost == 0": int(out.lost[-1]) == 0,
+        "film centre 256: population within 5%": abs(int(out.N_p[-1]) - n0) <= 0.05 * n0,
+        "film centre 256: T_sv in (298, 302)": bool(((T > 298.0) & (T < 302.0)).all()),
+        "film centre 256: A launched": g_launch > 0,
+    })
+    del out
+    torch.cuda.empty_cache()
+
+    # ---- the k model: the bench film's eta = 0 map is on the mirror path
+    # (refused: the next slice); its eta = 2 A film runs off it -----------------
+    t0 = time.perf_counter()
+    k0_btab = build_boundary_tables(mat, f_dom, "k", device=device)
+    k_params = dataclasses.replace(f_params, temp_interp="linear", scat_model="k")
+    kh = k0_btab._host
+    vel = mat.group_vel.reshape(-1, 3)
+    incident = np.stack([vel @ n > 1e-12 for n in kh["u_normals"]])
+    covered = (kh["corr"] >= 0) & incident
+    zero_rows = [r for r in range(k0_btab.n_rows) if kh["creation"][r].sum() == 0.0]
+    # a diffuse draw reaches a row only from an incident mode without a
+    # specular partner (the eta = 0 walls reflect every partnered mode)
+    unpartnered = [int((incident[r] & (kh["corr"][r] < 0)).sum()) for r in zero_rows]
+    print(f"k film eta = 0: k-map coverage {float((kh['corr'] >= 0).mean()):.4g} of all modes, "
+          f"{float(covered.sum() / incident.sum()):.4g} of wall-incident modes; rows with zero "
+          f"diffuse creation {zero_rows} (uniform alias fallback), incident modes without a "
+          f"partner there {unpartnered}; tables {time.perf_counter() - t0:.1f} s", flush=True)
+    k0_refused = False
+    try:
+        require_slice(f_geo, k0_btab, k_params, tabs)
+    except NotImplementedError as e:
+        k0_refused = "item 10" in str(e)
+        print(f"k film eta = 0: refused: {e}", flush=True)
+    checks["k film eta = 0: mirror-eligible and refused (item 10)"] = (
+        mirror_eligible(f_geo, k0_btab, k_params, tabs) and k0_refused
+    )
+    del k0_btab
+    k_dom, k_geo, k_btab = build_ctx(mat, KFILM, device, "k")
+    k_np, k_rtab, k_params = run_params(mat, k_dom, PARTICLES, "pooled", device)
+    k_params = dataclasses.replace(k_params, temp_interp="linear", scat_model="k")
+    print(f"k film: layout {'slim' if mirror_eligible(k_geo, k_btab, k_params, tabs) else 'plain'}, "
+          f"evt_cap {event_window(k_geo, tabs, k_btab, k_params)}", flush=True)
+    out, n0, k_launch, events, k_state = main_path(
+        "k film", mat, k_dom, k_geo, k_btab, k_rtab, k_params, k_np, tabs, card,
+    )
+    T = out.T_sv[-1].cpu().numpy()
+    n_alive, lost = int(out.N_p[-1]), out.lost_split[-1].tolist()
+    checks.update({
+        "k film: plain layout (off the mirror path)": k_state.layout == "plain",
+        "k film: nothing dropped or defective": lost[0] == 0 and lost[2] == 0,
+        "k film: population within 5%": abs(n_alive - n0) <= 0.05 * n0,
+        "k film: T_sv in (298, 302)": bool(((T > 298.0) & (T < 302.0)).all()),
+        "k film: T_sv falling hot to cold": bool((np.diff(T) < 0).all()),
+        "k film: degenerate-branch swaps > 0": events[2] > 0,
+        "k film: A, B, C launched": all(v > 0 for v in k_launch.values()),
+    })
+    k_cfg = mega_config(k_geo, tabs, k_btab, k_params, event_window(k_geo, tabs, k_btab, k_params))
+    recs["kfilm_linear"] = check_megastep("drift_megastep[k film linear]", with_fresh(k_state.pool, device),
+                                          k_state.T_sv, k_cfg, 4, 0)
+    del out, k_state, k_btab
+    torch.cuda.empty_cache()
+
+    # ---- the plate through the driver, then its kernel check -----------------
     import shutil
+
+    sim, sim_dir, p_launch, p_checks = plate_main(mat, card, device)
+    checks.update(p_checks)
+    p_pool = with_fresh(sim.state.pool, device)
+    p_fresh = int(((p_pool[C_CF].view(torch.int32) == STALE) & (p_pool[C_ALIVE] > 0.5)).sum())
+    p_cfg = mega_config(sim.geo, sim.mtab, sim.btab, sim.params,
+                        event_window(sim.geo, sim.mtab, sim.btab, sim.params))
+    recs["plate"] = check_megastep("drift_megastep[plate centre 8]", p_pool, sim.state.T_sv, p_cfg, 5,
+                                   p_fresh * 45 * p_cfg.tris.shape[0])
+    del sim, p_pool
+    shutil.rmtree(sim_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    for k in ("film_linear", "film_centre256", "kfilm_linear", "plate"):
+        r = recs[k]
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']:.3g} "
+              f"({r['match']})", flush=True)
+
+    # ---- the large mesh through the driver, then its kernel checks -----------
 
     sim, sim_dir, b_launch, b_checks = bigmesh_main(mat, card, device)
     checks.update(b_checks)
@@ -754,6 +1089,10 @@ def main(device=None) -> None:
     recs["survivors"]["launches"] = f_launch["compact"]
     recs["lattice"]["launches"] = w_launch["compact"]
     recs["castoff"]["launches"] = b_launch["megastep"]
+    recs["film_linear"]["launches"] = fl_launch
+    recs["film_centre256"]["launches"] = g_launch
+    recs["kfilm_linear"]["launches"] = k_launch["megastep"]
+    recs["plate"]["launches"] = p_launch["megastep"]
     for k in ("E_pool", "E_inj", "E_evt"):
         recs[k]["launches"] = b_launch["raycast_large"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

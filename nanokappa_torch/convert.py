@@ -14,7 +14,8 @@ imports neither jax nor the JAX package.
     rebuilds the full mirror cache (exact under the slim gate); the plain
     layout gives an unfilled one (X_MODE = -1).
   * `tables_from_jax`: MaterialTables, DeviceGeometry (the triangle tables
-    included), BoundaryTables (diff2 included) and ReservoirTables, field
+    and the grid/voronoi centres included; the centres' |c|^2 are derived
+    from them), BoundaryTables (diff2 included) and ReservoirTables, field
     for field; kernel A's per-facet tables are built from these by
     ops/megastep.py mega_config.
 """
@@ -63,7 +64,7 @@ def state_from_jax(d: dict, layout: str, device=None, seed: int = 0) -> SimState
         res_heat_flux=t("res_heat_flux", np.float32),
         lost=t("lost", np.int32),
         frozen=t("frozen", np.int32),
-        kernel_events=torch.zeros(2, dtype=torch.int64, device=device),
+        kernel_events=torch.zeros(3, dtype=torch.int64, device=device),
         gen=make_generator(seed, device),
         step=int(np.asarray(d["step"])),
     )

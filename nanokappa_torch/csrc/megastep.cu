@@ -4,22 +4,29 @@
 // (full cached lifetimes; rough walls diffuse in-kernel). Replaces the
 // Pallas kernel nanokappa_tpu/ops/megastep.py (drift_megastep :1067 /
 // _kernel :298) for the box and triangle casts (_tri_raycast :244), slice
-// subvolumes, nearest temperatures, the slim mirror, in-kernel diffuse
-// reflection (:382-402, :709-845, :883-888) and the export of pending lanes
-// (:890-944), and its kernel_cast-off branch for large meshes (:548-570,
-// :862-864, :1183-1190). Python wrapper, plain twin and the per-lane
-// algorithm: nanokappa_torch/ops/megastep.py.
+// subvolumes with nearest or linear temperatures (_T_interp :496-528),
+// grid/voronoi subvolumes by nearest centre (_sv_of :436-481), the slim
+// mirror, in-kernel diffuse reflection (:382-402, :709-845, :883-888) and
+// the export of pending lanes (:890-944), and its kernel_cast-off branch for
+// large meshes (:548-570, :862-864, :1183-1190). Python wrapper, plain twin
+// and the per-lane algorithm: nanokappa_torch/ops/megastep.py.
 //
 // Templates: TRI (triangle cast, else the box slab cast) x SLIM (the slim
 // mirror, else the plain layout) x PRECAST (kernel_cast off: no cast and no
 // event round; injections arrive pre-cast with t_enc = -t/dt - 1 in C_TCOLL
 // and the real facet in C_CF, and every lane whose flight ends in the step
-// exports), so each path pays only for its own registers. PRECAST is its
-// own instantiation because the in-kernel-diffuse one reads C_TCOLL < -1.5
-// as "already flagged" and the two encodings collide. The facet table, the triangle table, T_sv and the lifetime
-// grid are staged in shared memory per block; the diffuse tables (diff2,
-// omega_vel, |k|^2, the partner bitmask, the lifetime table) are gathered
-// from global memory (they fit in the 50 MB L2) at a rough-wall hit only.
+// exports) x SVM (the subvolume and temperature mode: slice/nearest,
+// slice/linear, centre/nearest), so each path pays only for its own
+// registers. PRECAST is its own instantiation because the in-kernel-diffuse
+// one reads C_TCOLL < -1.5 as "already flagged" and the two encodings
+// collide. The centre table [x, y, z, |c|^2] (centre mode), the facet
+// table, the triangle table, T_sv and the lifetime grid are staged in
+// shared memory per block; the diffuse tables (diff2, omega_vel, |k|^2, the
+// partner bitmask, the lifetime table) are gathered from global memory
+// (they fit in the 50 MB L2) at a rough-wall hit only. The nearest-centre
+// loop walks every centre (up to 256) twice per lane — before and after
+// the drift — keeping the first minimum of |c|^2 - 2 q.c, with |c|^2
+// rounded on the host (geometry/device.py center_sq_norms).
 //
 // Launches: lanes (physics, pool write, pending flags, per-block counts
 // and partial sums) -> scan of the per-block pending counts -> export
@@ -34,9 +41,9 @@
 
 struct MegaCfg {  // mirrored by _CCfg in ops/megastep.py, field for field
   int n, n_rows, tri, sv, sv8, rta_on, flip_axis, slice_axis, ecap;
-  int n_facets, n_tris, rounds, n_modes, n_tau, precast;
+  int n_facets, n_tris, rounds, n_modes, n_tau, precast, sv_mode;
   unsigned int seed;
-  float dt, t_ref, hbar, kb, x_ref, lo_b, inv_len, tau_tmin, tau_tmax;
+  float dt, t_ref, hbar, kb, x_ref, lo_b, inv_len, tau_tmin, tau_tmax, c0, dc;
   const float* facets;     // (n_facets, FT_W) facet table, ints as bits
   const float* tris;       // (n_tris, TRI_W) [origin, e1, e2, facet bits]
   const float* diff2;      // (NU, n_modes, 2) [alias prob, alias mode bits]
@@ -45,6 +52,7 @@ struct MegaCfg {  // mirrored by _CCfg in ops/megastep.py, field for field
   const int* cmask;        // (n_modes,) bit r: a specular partner at row r
   const float* tau;        // (n_tau, n_modes) lifetime table
   const float* tau_T;      // (n_tau,) its temperatures
+  const float* centers;    // (sv, 4) [x, y, z, |c|^2] (centre mode only)
 };
 
 namespace {
@@ -60,6 +68,9 @@ constexpr int TRI_W = 10;
 constexpr int STALE = -2;
 constexpr int R8 = 8;
 constexpr int MAX_SV = 512;  // slice subvolumes the kernel takes (shared T_sv)
+constexpr int MAX_CEN = 256;  // grid/voronoi centres its nearest-centre loop walks
+// subvolume and temperature modes (ops/megastep.py SV_*)
+constexpr int SV_SLICE = 0, SV_LINEAR = 1, SV_CENTER = 2;
 constexpr int K_ABSORB = 1, K_PERIODIC = 2, K_ROUGH = 3;
 constexpr float REMAIN_EPS = 1e-5f;
 constexpr float T_BACK = -1e-4f;
@@ -97,9 +108,42 @@ __device__ __forceinline__ float occ_delta(float T, float omega, const MegaCfg& 
   return (okT && okR) ? (eR - eT) / (eT * eR) : nT - nR;
 }
 
-__device__ __forceinline__ int sv_of(const float p[3], const MegaCfg& c) {
+// the subvolume of position p: slice index arithmetic, or the first centre
+// with the least |c|^2 - 2 q.c (strict < from +inf: a NaN never wins)
+template <int SVM>
+__device__ __forceinline__ int sv_of(const float p[3], const MegaCfg& c, const float4* cen) {
+  if (SVM == SV_CENTER) {
+    int best = 0;
+    float bd = INFINITY;
+    for (int k = 0; k < c.sv; ++k) {
+      const float4 q = cen[k];
+      const float d = q.w - 2.0f * ((p[0] * q.x + p[1] * q.y) + p[2] * q.z);
+      if (d < bd) {
+        bd = d;
+        best = k;
+      }
+    }
+    return best;
+  }
   const int i = (int)((sel3(p, c.slice_axis) - c.lo_b) * c.inv_len);  // truncation
   return i < 0 ? 0 : (i > c.sv - 1 ? c.sv - 1 : i);
+}
+
+// the particle temperature at p in subvolume sv: T_sv[sv] (nearest), or the
+// lerp between the slice centres around p, extrapolated past the end ones
+// (linear; truncation with a fpos < 0 fix-up is floor)
+template <int SVM>
+__device__ __forceinline__ float T_at(const float p[3], int sv, const MegaCfg& c,
+                                      const float* s_T) {
+  if (SVM == SV_LINEAR) {
+    const float fpos = (sel3(p, c.slice_axis) - c.c0) / c.dc;
+    int lo = (int)fpos;
+    lo = lo < 0 ? 0 : (lo > c.sv - 2 ? c.sv - 2 : lo);
+    if (fpos < 0.0f) lo = 0;
+    const float w = fpos - (float)lo;
+    return s_T[lo] * (1.0f - w) + s_T[lo + 1] * w;
+  }
+  return s_T[sv];
 }
 
 // slab cast against the six box walls, skipping facet `exclude`
@@ -191,16 +235,20 @@ __device__ __forceinline__ float e_bin(float omega, float dev, float T, const Me
 }
 
 // blk: per-block counts [pending | alive | diffused | flagged], nb each
-template <bool TRI, bool SLIM, bool PRECAST>
+template <bool TRI, bool SLIM, bool PRECAST, int SVM>
 __global__ void __launch_bounds__(NK_BLOCK)
 mega_lanes(const MegaCfg c, float* __restrict__ pool, const float* __restrict__ T_sv,
            uint8_t* __restrict__ pend_flag, int* __restrict__ blk,
            float* __restrict__ part_bins, float* __restrict__ part_led) {
-  extern __shared__ float s_dyn[];
-  float* s_fac = s_dyn;                         // n_facets * FT_W
+  extern __shared__ float4 s_dyn4[];
+  const int n_cen = SVM == SV_CENTER ? c.sv : 0;
+  const float4* s_cen = s_dyn4;                  // n_cen centres (16-byte aligned first)
+  float* s_fac = reinterpret_cast<float*>(s_dyn4 + n_cen);  // n_facets * FT_W
   float* s_tri = s_fac + c.n_facets * FT_W;     // n_tris * TRI_W
   float* s_T = s_tri + c.n_tris * TRI_W;        // sv
   float* s_tT = s_T + c.sv;                     // n_tau
+  for (int k = threadIdx.x; k < n_cen; k += NK_BLOCK)
+    s_dyn4[k] = reinterpret_cast<const float4*>(c.centers)[k];
   for (int k = threadIdx.x; k < c.n_facets * FT_W; k += NK_BLOCK) s_fac[k] = c.facets[k];
   for (int k = threadIdx.x; k < c.n_tris * TRI_W; k += NK_BLOCK) s_tri[k] = c.tris[k];
   for (int k = threadIdx.x; k < c.sv; k += NK_BLOCK) s_T[k] = T_sv[k];
@@ -243,9 +291,9 @@ mega_lanes(const MegaCfg c, float* __restrict__ pool, const float* __restrict__ 
     }
 
     // ---- 1. deferred RTA ----------------------------------------------------
-    const int sv = sv_of(p, c);
+    const int sv = sv_of<SVM>(p, c, s_cen);
     float rem = rem_col > REMAIN_EPS ? rem_col : (alive ? 1.0f : 0.0f);
-    const float T_p = s_T[sv];
+    const float T_p = T_at<SVM>(p, sv, c, s_T);
     const float g = occ_delta(T_p, omega, c);
     float tau_ev = tau;
     if (SLIM) {  // slope-form lifetime
@@ -333,7 +381,7 @@ mega_lanes(const MegaCfg c, float* __restrict__ pool, const float* __restrict__ 
             const float2 pa = reinterpret_cast<const float2*>(c.diff2)[(size_t)r * c.n_modes + j];
             const int nm = nk::uniform24(lane, c.seed, round, 2) < pa.x ? j : __float_as_int(pa.y);
             const float4 ov = reinterpret_cast<const float4*>(c.omega_vel)[nm];
-            const float T_w = s_T[sv_of(p, c)];
+            const float T_w = T_at<SVM>(p, sv_of<SVM>(p, c, s_cen), c, s_T);
             dev = occ_delta(T_w, ov.x, c);
             tau = tau_at(T_w, nm, c, s_tT);
             mode = nm;
@@ -366,7 +414,7 @@ mega_lanes(const MegaCfg c, float* __restrict__ pool, const float* __restrict__ 
 
     // ---- 5/6. pending flag, pool write, sums of the lanes that stay ------------
     pend = alive && rem > REMAIN_EPS && cf >= 0 && t_coll <= 1e-9f;
-    const int sv2 = sv_of(p, c);
+    const int sv2 = sv_of<SVM>(p, c, s_cen);
     for (int k = 0; k < 3; ++k) {
       row(k) = p[k];
       row(3 + k) = v[k];
@@ -473,12 +521,33 @@ sum_counts(const int* __restrict__ a, int nb, int* __restrict__ out) {
   if (threadIdx.x == 0) out[blockIdx.x == 0 ? 1 : blockIdx.x + 2] = (int)sh[0];
 }
 
-template <bool TRI, bool SLIM, bool PRECAST = false>
+template <bool TRI, bool SLIM, bool PRECAST, int SVM>
 void launch_lanes(const MegaCfg& c, int nb, size_t smem, cudaStream_t s, float* pool,
                   const float* T, uint8_t* flag, int* blk, float* part_bins,
                   float* part_led) {
-  mega_lanes<TRI, SLIM, PRECAST><<<nb, NK_BLOCK, smem, s>>>(c, pool, T, flag, blk, part_bins,
-                                                            part_led);
+  mega_lanes<TRI, SLIM, PRECAST, SVM><<<nb, NK_BLOCK, smem, s>>>(c, pool, T, flag, blk,
+                                                                 part_bins, part_led);
+}
+
+// the instantiations a gate can reach: every cast/layout branch (the
+// cast-off one on the plain layout only) in each subvolume/temperature mode
+template <int SVM>
+int dispatch_lanes(const MegaCfg& c, int nb, size_t smem, cudaStream_t s, float* pool,
+                   const float* T, uint8_t* flag, int* blk, float* part_bins,
+                   float* part_led) {
+  const bool slim = c.n_rows == 18;
+  if (c.precast) {  // the plain pool only; no facet or triangle table
+    if (slim || c.n_facets != 0 || c.n_tris != 0 || c.rounds != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    launch_lanes<false, false, true, SVM>(c, nb, smem, s, pool, T, flag, blk, part_bins, part_led);
+  } else if (c.tri) {
+    if (slim) launch_lanes<true, true, false, SVM>(c, nb, smem, s, pool, T, flag, blk, part_bins, part_led);
+    else launch_lanes<true, false, false, SVM>(c, nb, smem, s, pool, T, flag, blk, part_bins, part_led);
+  } else {
+    if (slim) launch_lanes<false, true, false, SVM>(c, nb, smem, s, pool, T, flag, blk, part_bins, part_led);
+    else launch_lanes<false, false, false, SVM>(c, nb, smem, s, pool, T, flag, blk, part_bins, part_led);
+  }
+  return 0;
 }
 
 }  // namespace
@@ -492,7 +561,9 @@ extern "C" int nk_megastep(const void* cfg, void* pool, const void* T_sv, void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const MegaCfg c = *static_cast<const MegaCfg*>(cfg);
   const int nb = (c.n + NK_BLOCK - 1) / NK_BLOCK;
-  if (nb == 0 || c.sv > MAX_SV || (c.n_rows != 16 && c.n_rows != 18))
+  if (nb == 0 || c.sv > MAX_SV || (c.n_rows != 16 && c.n_rows != 18) ||
+      (c.sv_mode == SV_CENTER && (c.sv > MAX_CEN || c.centers == nullptr)) ||
+      (c.sv_mode == SV_LINEAR && c.sv < 2))
     return static_cast<int>(cudaErrorInvalidValue);
   float* part_bins = static_cast<float*>(scratch_f);
   float* part_frozen = part_bins + (size_t)nb * c.sv8 * 5;
@@ -503,21 +574,20 @@ extern "C" int nk_megastep(const void* cfg, void* pool, const void* T_sv, void* 
   float* p = static_cast<float*>(pool);
   const float* T = static_cast<const float*>(T_sv);
   uint8_t* flag = static_cast<uint8_t*>(pend);
-  const size_t smem =
-      sizeof(float) * ((size_t)c.n_facets * FT_W + (size_t)c.n_tris * TRI_W + c.sv + c.n_tau);
+  const size_t n_cen = c.sv_mode == SV_CENTER ? c.sv : 0;
+  const size_t smem = sizeof(float) * (4 * n_cen + (size_t)c.n_facets * FT_W +
+                                       (size_t)c.n_tris * TRI_W + c.sv + c.n_tau);
 
-  const bool slim = c.n_rows == 18;
-  if (c.precast) {  // the plain pool only; no facet or triangle table
-    if (slim || c.n_facets != 0 || c.n_tris != 0 || c.rounds != 0)
-      return static_cast<int>(cudaErrorInvalidValue);
-    launch_lanes<false, false, true>(c, nb, smem, s, p, T, flag, blk, part_bins, part_led);
-  } else if (c.tri) {
-    if (slim) launch_lanes<true, true>(c, nb, smem, s, p, T, flag, blk, part_bins, part_led);
-    else launch_lanes<true, false>(c, nb, smem, s, p, T, flag, blk, part_bins, part_led);
-  } else {
-    if (slim) launch_lanes<false, true>(c, nb, smem, s, p, T, flag, blk, part_bins, part_led);
-    else launch_lanes<false, false>(c, nb, smem, s, p, T, flag, blk, part_bins, part_led);
-  }
+  int bad;
+  if (c.sv_mode == SV_SLICE)
+    bad = dispatch_lanes<SV_SLICE>(c, nb, smem, s, p, T, flag, blk, part_bins, part_led);
+  else if (c.sv_mode == SV_LINEAR)
+    bad = dispatch_lanes<SV_LINEAR>(c, nb, smem, s, p, T, flag, blk, part_bins, part_led);
+  else if (c.sv_mode == SV_CENTER)
+    bad = dispatch_lanes<SV_CENTER>(c, nb, smem, s, p, T, flag, blk, part_bins, part_led);
+  else
+    bad = static_cast<int>(cudaErrorInvalidValue);
+  if (bad) return bad;
   nk::scan_counts<<<1, NK_SCAN, 0, s>>>(blk, nb, pend_off, cnt + 0, c.ecap, cnt + 2);
   mega_export<<<nb, NK_BLOCK, 0, s>>>(c, p, T, flag, pend_off, static_cast<float*>(rows),
                                       static_cast<int*>(idx), part_frozen);

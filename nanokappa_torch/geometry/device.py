@@ -9,6 +9,7 @@ and its in-kernel event rounds read only the six box facets' tables.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import cached_property
 
 import numpy as np
 import torch
@@ -61,6 +62,12 @@ class DeviceGeometry:
     volume: float = field(metadata=dict(static=True))
     is_box: bool = field(metadata=dict(static=True), default=False)
 
+    @cached_property
+    def subvol_c2(self) -> torch.Tensor:
+        """(SV,) f32 |c|^2 of each centre for the nearest-centre classifier
+        (center_sq_norms), derived once from subvol_center."""
+        return torch.as_tensor(center_sq_norms(host(self.subvol_center)), device=self.device)
+
     @property
     def device(self) -> torch.device:
         return self.bounds.device
@@ -69,6 +76,16 @@ class DeviceGeometry:
 def host(t: torch.Tensor) -> np.ndarray:
     """NumPy copy of a (possibly CUDA) table tensor, for host-side logic."""
     return t.detach().cpu().numpy()
+
+
+def center_sq_norms(centers: np.ndarray) -> np.ndarray:
+    """|c|^2 of each float32 centre, summed in float64 and rounded once to
+    float32: the JAX kernel's rounding up to its 32-centre unroll
+    (nanokappa_tpu/ops/megastep.py:451), taken here for every centre count
+    (beyond 32 the JAX kernel sums in float32, the XLA classifier takes a
+    matmul: their ids differ from the port's only at near-ties)."""
+    c = np.asarray(centers, np.float32).astype(np.float64)
+    return ((c[:, 0] * c[:, 0] + c[:, 1] * c[:, 1]) + c[:, 2] * c[:, 2]).astype(np.float32)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -260,26 +260,22 @@ def build_domain(
             volumes = np.full(n_sv, mesh.volume / n_sv)
         else:
             volumes = _mc_subvol_volume(mesh, centers, rng, algorithm=volume_algo)
-    elif sv_type == "grid":
-        from nanokappa_torch.geometry.subvolumes import grid_centers
+    elif sv_type in ("grid", "voronoi"):
+        from nanokappa_torch.geometry.subvolumes import grid_centers, lloyd_centers
 
         axis = 0
-        centers = grid_centers(mesh, grid)
-        volumes = _mc_subvol_volume(mesh, centers, rng, algorithm=volume_algo)
-        sv_connections = _nearest_connections(centers, mesh)
-    elif sv_type == "voronoi":
-        from nanokappa_torch.geometry.subvolumes import lloyd_centers
-
-        axis = 0
-        n_sv = int(subvolumes[1])
-        centers = lloyd_centers(mesh, n_sv, rng)
+        if sv_type == "grid":
+            centers = grid_centers(mesh, grid)
+        else:
+            centers = lloyd_centers(mesh, int(subvolumes[1]), rng)
+        # the centres in (x, y, z) order BEFORE their volumes and connections
+        # are taken: the JAX package sorts them after, so its volumes and
+        # connections index the unsorted centres (ROADMAP queue 3)
+        centers = centers[np.lexsort((centers[:, 2], centers[:, 1], centers[:, 0]))]
         volumes = _mc_subvol_volume(mesh, centers, rng, algorithm=volume_algo)
         sv_connections = _nearest_connections(centers, mesh)
     else:
         raise ValueError(f"invalid subvolume type '{sv_type}'")
-
-    order = np.lexsort((centers[:, 2], centers[:, 1], centers[:, 0]))
-    centers = centers[order]
 
     return Domain(
         mesh=mesh,

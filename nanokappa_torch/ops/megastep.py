@@ -10,16 +10,20 @@ apart by the pool's layout tag (sim/state.py):
     :883-888) — with the draws made here rather than read from a
     presample pool.
 The ray cast is the box slab cast or, for a mesh of at most 128 triangles,
-the Möller–Trumbore cast of `_tri_raycast` (:244). Larger meshes run the
+the Möller–Trumbore cast of `_tri_raycast` (:244). Subvolumes are slices
+(index arithmetic) or grid/voronoi centres (the first nearest centre by
+|c|^2 - 2 q.c, `_sv_of` :436-481, up to 256 centres); the particle
+temperature is T_sv of the subvolume or, on slices, the lerp between the
+slice centres with extrapolation (`_T_interp` :496-528). Larger meshes run the
 kernel_cast-off branch (:548-570, :862-864, :1183-1190) on the "plain"
 pool: no cast and no in-kernel round — injections arrive pre-cast
 (sim/fused.py, through kernel E) with t_enc = -t/dt - 1 in C_TCOLL and the
 real facet in C_CF, and every lane whose flight ends in the step exports.
 Per lane, in order:
-  1. deferred RTA (the previous step's scattering) with the slope-form
-     lifetime tau = a + b*T_clamped on "slim", the cached lifetime on
-     "plain"; lanes injected this step (C_CF == STALE, or C_TCOLL < -0.5
-     with kernel_cast off) skip it,
+  1. deferred RTA (the previous step's scattering) at the particle
+     temperature, with the slope-form lifetime tau = a + b*T_clamped on
+     "slim", the cached lifetime on "plain"; lanes injected this step
+     (C_CF == STALE, or C_TCOLL < -0.5 with kernel_cast off) skip it,
   2. the ray cast for stale lanes (kernel_cast off: the pre-cast flight
      time decoded, t = -t_enc - 1),
   3. drift by min(t_coll, remaining),
@@ -52,7 +56,13 @@ the same numbers. The JAX kernel's presample pool (sim/diffuse_pool.py), its
 gather per lane; the card can, and the tables fit in its L2.
 
 CUDA design (csrc/megastep.cu): one thread per lane over the SoA pool,
-updated in place; templates on box/triangle cast and slim/plain layout.
+updated in place; templates on box/triangle cast, slim/plain layout, the
+cast-off branch and the subvolume/temperature mode (SV_SLICE, SV_LINEAR,
+SV_CENTER). The centre table [x, y, z, |c|^2] rides first in shared memory
+in the centre mode; the nearest-centre loop runs twice a lane (before and
+after the drift), ~7 float32 operations per centre: at 256 centres on the
+1.28e6-lane pool ~4.6 GFLOP, 0.07 ms at 67 TFLOP/s, above the pool's
+bytes (operations bound it there).
 The per-facet table (kind, reservoir, value, normal, shift, pair, box plane,
 eta, table rows) and the triangle table ride in shared memory; the diffuse
 tables (diff2, omega_vel, |k|^2, the partner bitmask, the lifetime table)
@@ -80,6 +90,7 @@ import torch
 from nanokappa_torch.constants import HBAR, KB
 from nanokappa_torch.geometry.domain import BC
 from nanokappa_torch.ops.kmath import occupation_delta_T_k, signk
+from nanokappa_torch.sim.binning import interp_T_linear, linear_axis, nearest_center
 from nanokappa_torch.sim.state import (
     C_ALIVE, C_CF, C_DEV, C_MODE, C_OMEGA, C_ONF, C_REM, C_TAU, C_TCOLL,
     LAYOUT_ROWS, R_MMODE, R_TAUB, STALE, as_f32, as_i32,
@@ -92,6 +103,12 @@ _T_BACK_DT = -1e-4  # ps
 R8 = 8  # ledger rows: reservoirs, the last row collects nothing
 
 _K_NONE, _K_ABSORB, _K_PERIODIC, _K_ROUGH = 0, 1, 2, 3
+# subvolume and temperature modes (csrc/megastep.cu SV_*): slice/nearest,
+# slice/linear, grid or voronoi centre/nearest
+SV_SLICE, SV_LINEAR, SV_CENTER = 0, 1, 2
+MAX_SLICES = 512  # slices the kernel stages (its shared T_sv)
+MAX_CENTERS = 256  # grid/voronoi centres its nearest-centre loop walks
+#   (the JAX package's cap, nanokappa_tpu/sim/fused.py:291-296)
 # facet-table columns (csrc/megastep.cu FT_*); ints are stored as int32 bits
 (FT_KIND, FT_RES, FT_PAIR, FT_VALUE, FT_NORMAL, FT_SHIFT, FT_AXIS, FT_SIGN,
  FT_PLANE, FT_ETA, FT_ROW, FT_ROWB) = 0, 1, 2, 3, 4, 7, 10, 11, 12, 13, 14, 15
@@ -142,16 +159,17 @@ class _CCfg(ctypes.Structure):
         ("ecap", ctypes.c_int), ("n_facets", ctypes.c_int),
         ("n_tris", ctypes.c_int), ("rounds", ctypes.c_int),
         ("n_modes", ctypes.c_int), ("n_tau", ctypes.c_int),
-        ("precast", ctypes.c_int), ("seed", ctypes.c_uint),
+        ("precast", ctypes.c_int), ("sv_mode", ctypes.c_int), ("seed", ctypes.c_uint),
         ("dt", ctypes.c_float), ("t_ref", ctypes.c_float),
         ("hbar", ctypes.c_float), ("kb", ctypes.c_float),
         ("x_ref", ctypes.c_float), ("lo_b", ctypes.c_float),
         ("inv_len", ctypes.c_float), ("tau_tmin", ctypes.c_float),
-        ("tau_tmax", ctypes.c_float),
+        ("tau_tmax", ctypes.c_float), ("c0", ctypes.c_float), ("dc", ctypes.c_float),
         ("facets", ctypes.c_void_p), ("tris", ctypes.c_void_p),
         ("diff2", ctypes.c_void_p), ("omega_vel", ctypes.c_void_p),
         ("k2", ctypes.c_void_p), ("cmask", ctypes.c_void_p),
         ("tau", ctypes.c_void_p), ("tau_T", ctypes.c_void_p),
+        ("centers", ctypes.c_void_p),
     ]
 
 
@@ -161,9 +179,12 @@ class MegaConfig:
 
     layout: str  # "slim" | "plain"
     sv: int
+    sv_mode: int  # SV_SLICE | SV_LINEAR | SV_CENTER
     slice_axis: int
     lo_b: float
     inv_len: float
+    c0: float  # linear: the first slice centre on the slice axis
+    dc: float  # linear: the slice centres' spacing
     flip_axis: int  # the slim mirror's wall axis (-1 on "plain")
     dt: float
     t_ref: float
@@ -183,6 +204,7 @@ class MegaConfig:
     cmask: torch.Tensor  # (M,) i32 bit r: the mode has a specular partner at row r
     tau: torch.Tensor  # (nT, M) f32 lifetime table
     tau_T: torch.Tensor  # (nT,) f32
+    centers: torch.Tensor  # (SV, 4) f32 [x, y, z, |c|^2] (centre mode; empty otherwise)
 
     @property
     def sv8(self) -> int:
@@ -196,6 +218,7 @@ class MegaConfig:
         c = _CCfg()
         c.n, c.n_rows = n, self.n_rows
         c.tri, c.precast = int(self.box is None and self.kernel_cast), int(not self.kernel_cast)
+        c.sv_mode, c.c0, c.dc = self.sv_mode, self.c0, self.dc
         c.sv, c.sv8 = self.sv, self.sv8
         c.rta_on, c.flip_axis = int(bool(rta_on)), self.flip_axis
         c.slice_axis, c.ecap = self.slice_axis, self.ecap
@@ -206,7 +229,7 @@ class MegaConfig:
         c.x_ref = HBAR / (self.t_ref * KB)
         c.lo_b, c.inv_len = self.lo_b, self.inv_len
         c.tau_tmin, c.tau_tmax = self.tau_tmin, self.tau_tmax
-        for name in ("facets", "tris", "diff2", "omega_vel", "k2", "cmask", "tau", "tau_T"):
+        for name in ("facets", "tris", "diff2", "omega_vel", "k2", "cmask", "tau", "tau_T", "centers"):
             t = getattr(self, name)
             setattr(c, name, t.data_ptr() if t.numel() else None)
         return c
@@ -268,12 +291,14 @@ def mega_config(
     given, else "plain" — with the diffuse tables when there are rough
     walls and the kernel casts, with no facet or triangle table when it
     cannot (kernel_cast off). `kernel_cast` defaults to what the geometry
-    allows (sim/fused.py kernel_cast_ok); False forces the cast-off branch."""
+    allows (sim/fused.py kernel_cast_ok); False forces the cast-off branch.
+    The subvolume/temperature mode follows the geometry's subvolume type
+    and params.temp_interp (linear on slices only, sim/fused.py
+    require_slice)."""
     from nanokappa_torch.geometry.device import host
     from nanokappa_torch.ops.raycast import box_tables, tri_table
     from nanokappa_torch.sim.fused import kernel_cast_ok
 
-    assert geo.subvol_type == "slice"
     d = geo.device
     slim = flip_axis is not None
     kcast = kernel_cast_ok(geo) if kernel_cast is None else bool(kernel_cast)
@@ -281,6 +306,13 @@ def mega_config(
     bounds = host(geo.bounds)
     ax = int(geo.slice_axis)
     SV = int(geo.n_subvols)
+    if geo.subvol_type != "slice":
+        sv_mode = SV_CENTER
+        centers = torch.cat([geo.subvol_center, geo.subvol_c2[:, None]], 1).contiguous()
+    else:
+        sv_mode = SV_LINEAR if params.temp_interp == "linear" else SV_SLICE
+        centers = torch.zeros((0, 4), dtype=torch.float32, device=d)
+    c0, dc = linear_axis(geo) if sv_mode == SV_LINEAR else (0.0, 1.0)
     tau_T = host(mat.tau_T)
     empty = torch.zeros(0, dtype=torch.float32, device=d)
     if dkern:
@@ -295,9 +327,12 @@ def mega_config(
     return MegaConfig(
         layout="slim" if slim else "plain",
         sv=SV,
+        sv_mode=sv_mode,
         slice_axis=ax,
         lo_b=float(bounds[0, ax]),
         inv_len=float(SV / (bounds[1, ax] - bounds[0, ax])),
+        c0=c0,
+        dc=dc,
         flip_axis=int(flip_axis) if slim else -1,
         dt=float(params.dt),
         t_ref=float(params.t_reference),
@@ -322,6 +357,7 @@ def mega_config(
         cmask=cmask,
         tau=tau,
         tau_T=tau_Tt,
+        centers=centers,
     )
 
 
@@ -361,8 +397,17 @@ def _cast(cfg: MegaConfig, p, v, exclude):
 
 
 def _sv_of(cfg: MegaConfig, p):
+    if cfg.sv_mode == SV_CENTER:
+        return nearest_center(torch.stack(p, 1), cfg.centers[:, :3], cfg.centers[:, 3])
     qa = p[cfg.slice_axis]
     return torch.clamp(((qa - cfg.lo_b) * cfg.inv_len).to(torch.int32), 0, cfg.sv - 1)
+
+
+def _T_of(cfg: MegaConfig, T_sv, p, sv):
+    """The particle temperature: linear along the slices, else T_sv[sv]."""
+    if cfg.sv_mode == SV_LINEAR:
+        return interp_T_linear(T_sv, p[cfg.slice_axis], cfg.c0, cfg.dc)
+    return T_sv[sv.long()]
 
 
 def _tau_at(cfg: MegaConfig, T, mode):
@@ -407,7 +452,7 @@ def drift_megastep_plain(pool, T_sv, rta_on, cfg: MegaConfig, seed: int = 0):
     rem = torch.where(pool[C_REM] > _REMAIN_EPS, pool[C_REM], torch.where(alive, 1.0, 0.0))
 
     # ---- 1. deferred RTA ------------------------------------------------------
-    T_p = T_sv[sv.long()]
+    T_p = _T_of(cfg, T_sv, p, sv)
     g = occupation_delta_T_k(T_p, t_ref, omega)
     tau_ev = tau + tau_b * torch.clamp(T_p, cfg.tau_tmin, cfg.tau_tmax) if slim else tau
     decay = torch.where(
@@ -491,7 +536,7 @@ def drift_megastep_plain(pool, T_sv, rta_on, cfg: MegaConfig, seed: int = 0):
             nm = torch.where(uniform24(lane, seed, rnd, 2) < pa[:, 0], j, as_i32(pa[:, 1]))
             nm = torch.where(rrf, nm, 0)
             ov = cfg.omega_vel[nm.long()]
-            T_w = T_sv[_sv_of(cfg, p).long()]
+            T_w = _T_of(cfg, T_sv, p, None if cfg.sv_mode == SV_LINEAR else _sv_of(cfg, p))
             dev = torch.where(rrf, occupation_delta_T_k(T_w, t_ref, ov[:, 0]), dev)
             tau = torch.where(rrf, _tau_at(cfg, T_w, nm), tau)
             mode = torch.where(rrf, nm, mode)
@@ -596,8 +641,12 @@ def _launch(pool, T_sv, rta_on, cfg: MegaConfig, seed: int):
         )
     if T_sv.dtype != torch.float32 or T_sv.shape[0] != cfg.sv or T_sv.device != pool.device:
         raise ValueError("drift_megastep: T_sv must be (SV,) float32 on the pool's device")
-    if cfg.sv > 512 or cfg.tris.shape[0] > 128 or cfg.facets.shape[0] > 128:
-        raise ValueError("drift_megastep: the kernel stages <= 512 subvolumes, 128 triangles, 128 facets")
+    if cfg.sv > MAX_SLICES or cfg.tris.shape[0] > 128 or cfg.facets.shape[0] > 128:
+        raise ValueError(
+            f"drift_megastep: the kernel stages <= {MAX_SLICES} subvolumes, 128 triangles, 128 facets"
+        )
+    if cfg.sv_mode == SV_CENTER and cfg.sv > MAX_CENTERS:
+        raise ValueError(f"drift_megastep: the nearest-centre loop walks <= {MAX_CENTERS} centres")
     if cfg.facets.device != pool.device:
         raise ValueError("drift_megastep: the config's tables must be on the pool's device")
     lib = _cuda.library()

@@ -46,6 +46,9 @@ class BoundaryTables:
     n_rows: int = field(metadata=dict(static=True))
 
 
+K_MODELS = ("k", "wavevector", "wave_vector")  # the k scattering model's names
+
+
 def _host_table(btab, name: str) -> np.ndarray:
     """Host copy of a BoundaryTables field. build_boundary_tables stashes the
     NumPy originals on the instance (`_host`) so host-side consumers
@@ -466,7 +469,7 @@ def build_boundary_tables(
     corr = np.stack(
         [
             _correspondence_k(mat, un)
-            if scat_model in ("k", "wavevector", "wave_vector")
+            if scat_model in K_MODELS
             else _correspondence_velocity(mat, un)
             for un in u_normals
         ],
@@ -488,7 +491,7 @@ def build_boundary_tables(
         spec_out = destruction * spec[f]
         valid = corr[f] >= 0
         np.add.at(creation, corr[f][valid], -spec_out[valid])
-        if scat_model in ("k", "wavevector", "wave_vector"):
+        if scat_model in K_MODELS:
             dp = _degen_partner(mat)
             has = dp >= 0
             avg = 0.5 * (creation + creation[np.where(has, dp, 0)])

@@ -13,7 +13,10 @@ Torch twin of nanokappa_tpu/sim/cascade.py (`run_event_buffer` :283 and
                alias through `diff2` (classes/Population.py:941-1015).
                Rows that kernel A exports flagged (C_TCOLL < -1.5) already
                won their specular Bernoulli in the kernel: round 1 takes
-               that draw as THE draw instead of drawing again.
+               that draw as THE draw instead of drawing again. Under the
+               k (wavevector) model a specular lane swaps to its
+               equal-frequency partner branch with probability 1/2
+               (classes/Population.py:1017-1040).
 Round 1 runs at buffer width; the few survivors are compacted (kernel C,
 ops/compact.py) into a narrow buffer for the remaining rounds. With kernel
 A's cast off (meshes over 128 triangles) every boundary hit arrives here,
@@ -37,8 +40,8 @@ from nanokappa_torch.ops.compact import compact_indices
 from nanokappa_torch.ops.raycast import raycast
 from nanokappa_torch.sim.binning import interp_T_particles, segment_sum, subvol_id
 from nanokappa_torch.sim.bose import occupation_delta_T, occupation_delta_omega
-from nanokappa_torch.sim.boundary_tables import BoundaryTables
-from nanokappa_torch.sim.scatter import blend_tau_sv, lifetime_by_sv
+from nanokappa_torch.sim.boundary_tables import K_MODELS, BoundaryTables
+from nanokappa_torch.sim.scatter import blend_tau_sv, lifetime_by_sv, lifetime_lookup
 from nanokappa_torch.sim.state import (
     C_CF, C_DEV, C_MODE, C_OMEGA, C_ONF, C_POS, C_REM, C_SV, C_TAU, C_TCOLL,
     C_VEL, SimParams, as_f32, as_i32,
@@ -66,6 +69,7 @@ class _Buf:
     remaining: torch.Tensor
     ledger: torch.Tensor  # (R8,5): [energy, flux xyz, absorbed count]
     lost: torch.Tensor  # () i32 defective lanes
+    swaps: torch.Tensor  # () i64 k-model degenerate-branch swaps
     round: int
 
     def pending(self) -> torch.Tensor:
@@ -100,7 +104,8 @@ def run_event_buffer(
     """Lanes enter sitting on facet C_CF with C_REM > 0. Returns
     (rows_out (16, E) with C_ALIVE updated, ledger (R8,5), lost_stuck
     (quarantined after k_max rounds), lost_defective (no boundary found),
-    frozen (narrow-buffer overflow)) — counts as device scalars."""
+    frozen (narrow-buffer overflow), swaps (the k model's degenerate-branch
+    swaps)) — counts as device scalars."""
     E = rows.shape[1]
     dev = rows.device
     buf = _Buf(
@@ -117,6 +122,7 @@ def run_event_buffer(
         remaining=torch.where(vbuf, rows[C_REM], 0.0),
         ledger=torch.zeros((R8, 5), device=dev),
         lost=torch.zeros((), dtype=torch.int32, device=dev),
+        swaps=torch.zeros((), dtype=torch.int64, device=dev),
         round=0,
     )
     tau_sv_blend = blend_tau_sv(mat, T_sv)
@@ -152,6 +158,7 @@ def run_event_buffer(
         remaining=torch.where(v2, buf1.remaining[g], 0.0),
         ledger=buf1.ledger,
         lost=buf1.lost,
+        swaps=buf1.swaps,
         round=buf1.round,
     )
     # the reference's `while np.any(calculated_ts < 1)` (one host read per
@@ -170,7 +177,7 @@ def run_event_buffer(
     # spare column that is dropped
     ext = torch.cat([rows_out, torch.zeros((rows.shape[0], 1), device=dev)], 1)
     ext[:, sidx2.long()] = rows2
-    return ext[:, :E], buf2.ledger, lost_stuck, buf2.lost, frozen2
+    return ext[:, :E], buf2.ledger, lost_stuck, buf2.lost, frozen2, buf2.swaps
 
 
 def _event_round(
@@ -262,14 +269,27 @@ def _event_round(
     mode_diff = torch.where(accept, j, as_i32(pa[:, 1]))
 
     changed = spec | diff
-    mode = torch.where(spec, corr_m, torch.where(diff, mode_diff, b.mode))
+    mode_spec = torch.where(spec, corr_m, b.mode)
+    swaps = b.swaps
+    if params.scat_model in K_MODELS:
+        # the k model's degenerate-branch split (classes/Population.py:
+        # 1017-1040): a specular lane whose mode has an equal-frequency
+        # partner branch swaps to it with probability 1/2
+        partner = btab.degen_partner[torch.clamp(mode_spec, 0, M - 1).long()]
+        swap = spec & (partner >= 0) & (u4[:, 3] >= 0.5)
+        mode_spec = torch.where(swap, partner, mode_spec)
+        swaps = swaps + swap.sum(dtype=torch.int64)
+    mode = torch.where(spec, mode_spec, torch.where(diff, mode_diff, b.mode))
     ov = mat.omega_vel[mode.long()]  # (E,4) shared table
     omega_new = torch.where(changed, ov[:, 0], b.omega)
     vel_new = torch.where(changed[:, None], ov[:, 1:4], b.vel)
 
     sv_here = subvol_id(geo, pos)
     T_wall = interp_T_particles(geo, T_sv, pos, sv_here, params.temp_interp)
-    tau_new = lifetime_by_sv(mat, T_sv, sv_here, mode, tau_sv=tau_sv_blend)
+    if params.temp_interp == "nearest":
+        tau_new = lifetime_by_sv(mat, T_sv, sv_here, mode, tau_sv=tau_sv_blend)
+    else:
+        tau_new = lifetime_lookup(mat, T_wall, mode)
     tau_new = torch.where(changed, tau_new, b.tau)
     dev = torch.where(
         spec,
@@ -316,5 +336,6 @@ def _event_round(
         remaining=remaining,
         ledger=ledger,
         lost=b.lost + bad.sum(dtype=torch.int32),
+        swaps=swaps,
         round=b.round + 1,
     )

@@ -2,8 +2,9 @@
 narrow event machinery.
 
 Torch twin of nanokappa_tpu/sim/fused.py `make_step_v2` (:576) on slice
-subvolumes with nearest temperatures, `pooled` or `constant` reservoirs,
-on two paths:
+subvolumes (nearest or linear temperatures) and grid/voronoi subvolumes of
+up to MAX_CENTERS centres (nearest temperatures), `pooled` or `constant`
+reservoirs, the velocity or the k scattering model, on three paths:
   * the film's slim specular-mirror path: an axis-aligned box whose rough
     walls are eta = 0 (fully specular) with the exact crystal mirror on one
     axis as correspondence (the slim gate, sim/boundary_tables.py
@@ -56,12 +57,15 @@ from nanokappa_torch.sim.binning import (
     segment_sum, subvol_id,
 )
 from nanokappa_torch.sim.boundary_tables import (
-    BoundaryTables, combined_mirror_rows, slim_mirror_axis,
+    K_MODELS, BoundaryTables, combined_mirror_rows, slim_mirror_axis,
 )
+from nanokappa_torch.ops.megastep import MAX_CENTERS, MAX_SLICES
 from nanokappa_torch.ops.raycast import raycast
 from nanokappa_torch.sim.cascade import run_event_buffer
 from nanokappa_torch.sim.reservoir import ReservoirTables, sample_injections
-from nanokappa_torch.sim.scatter import lifetime_by_sv, rta_scatter, slope_pair
+from nanokappa_torch.sim.scatter import (
+    lifetime_by_sv, lifetime_lookup, rta_scatter, slope_pair,
+)
 from nanokappa_torch.sim.state import (
     C_ALIVE, C_CF, C_DEV, C_MODE, C_OMEGA, C_ONF, C_POS, C_SV, C_TAU, C_TCOLL,
     C_VEL, R_MMODE, R_TAUB, STALE, SimParams, SimState, as_f32, as_i32,
@@ -146,23 +150,40 @@ def require_slice(geo, btab, params: SimParams, mat) -> None:
     any configuration outside the ported paths: the film (box, eta = 0
     walls, slim mirror), the mirror-off path of kernel A (box or mesh of
     <= TRI_KERNEL_MAX triangles, rough walls diffusing in-kernel) and its
-    kernel_cast-off path (meshes of <= LARGE_TRI_MAX triangles)."""
+    kernel_cast-off path (meshes of <= LARGE_TRI_MAX triangles); on slices
+    (<= MAX_SLICES, nearest or linear temperatures) or grid/voronoi
+    centres (<= MAX_CENTERS, nearest temperatures); the velocity model,
+    or the k model off the mirror path."""
     if params.n_shards != 1:
         raise _todo("particle-axis sharding (multi-GPU)", 12)
     if not geo.is_box and int(geo.tri_origin.shape[0]) > LARGE_TRI_MAX:
         raise _todo(
             f"meshes of more than {LARGE_TRI_MAX} triangles (the v1 step)", 11,
         )
-    if geo.subvol_type != "slice":
-        raise _todo(f"{geo.subvol_type!r} subvolumes", 10)
-    if geo.n_subvols > 512:
-        raise _todo(f"{geo.n_subvols} slices (the drift kernel takes 512)", 11)
-    if params.temp_interp == "radial":
-        raise _todo("temp_interp='radial' (the v1 step)", 11)
-    if params.temp_interp != "nearest":
-        raise _todo(f"temp_interp={params.temp_interp!r}", 10)
-    if params.scat_model in ("k", "wavevector", "wave_vector"):
-        raise _todo("the k (wavevector) scattering model", 10)
+    if params.temp_interp not in ("nearest", "linear"):
+        raise _todo(f"temp_interp={params.temp_interp!r} (the v1 step)", 11)
+    if geo.subvol_type == "slice":
+        if geo.n_subvols > MAX_SLICES:
+            raise _todo(f"{geo.n_subvols} slices (the drift kernel takes {MAX_SLICES}; the v1 step)", 11)
+        if params.temp_interp == "linear" and geo.n_subvols < 2:
+            raise ValueError("temp_interp='linear' needs at least 2 slices")
+    elif geo.subvol_type in ("grid", "voronoi"):
+        if params.temp_interp != "nearest":
+            raise _todo(
+                f"temp_interp={params.temp_interp!r} on {geo.subvol_type} subvolumes (the v1 step)", 11,
+            )
+        if geo.n_subvols > MAX_CENTERS:
+            raise _todo(
+                f"{geo.n_subvols} {geo.subvol_type} centres (the drift kernel takes "
+                f"{MAX_CENTERS}; the v1 step)", 11,
+            )
+    else:
+        raise _todo(f"{geo.subvol_type!r} subvolumes (the v1 step)", 11)
+    if params.scat_model in K_MODELS and mirror_eligible(geo, btab, params, mat):
+        raise _todo(
+            "the k (wavevector) model on the mirror path (the full 24-row mirror "
+            "with its degenerate split drawn at cache fill)", 10,
+        )
     if geo.n_reservoirs > 0 and params.res_gen not in ("pooled", "constant"):
         raise _todo(f"reservoir_gen={params.res_gen!r}", 5)
     if geo.n_reservoirs > 7:
@@ -389,7 +410,7 @@ def make_step_v2(
 
         # 3. the narrow machinery on the exported rows
         vbuf = lane_e < counts[2]
-        rows_out, mledger, lost_stuck, lost_def, frozen2 = run_event_buffer(
+        rows_out, mledger, lost_stuck, lost_def, frozen2, swaps = run_event_buffer(
             rows_x[:16], vbuf, geo, mat, btab, params, state.gen, state.T_sv,
             R8, evt2_cap=evt2_cap,
         )
@@ -453,7 +474,7 @@ def make_step_v2(
             [lost3 + lost_inj, lost_stuck, lost_def]
         ).to(torch.int32)
         state.frozen = state.frozen + (frozen_k + frozen2).to(torch.int32)
-        state.kernel_events = state.kernel_events + counts[3:5]
+        state.kernel_events = state.kernel_events + torch.cat([counts[3:5], swaps[None]])
         state.step += 1
         out = StepOutputs(
             T_sv=T_new,
@@ -479,7 +500,8 @@ def refresh_tau_T(state: SimState, geo, mat, params) -> SimState:
     CURRENT temperatures (nanokappa_tpu/sim/fused.py refresh_tau_T): on the
     slim layout the slope-form pairs (a, b) of the T-grid bins (the
     partner's pair equals the main mode's under the slim gate, so one
-    refresh serves both); on the plain layout the full lifetime
+    refresh serves both); on the plain layout the full lifetime at each
+    particle's interpolated temperature
     (nanokappa_tpu/sim/step.py refresh_tau :513)."""
     pool = state.pool
     alive = state.alive
@@ -490,7 +512,12 @@ def refresh_tau_T(state: SimState, geo, mat, params) -> SimState:
         pool[C_TAU] = torch.where(alive, a, pool[C_TAU])
         pool[R_TAUB] = torch.where(alive, b, pool[R_TAUB])
     else:
-        pool[C_TAU] = torch.where(alive, lifetime_by_sv(mat, state.T_sv, sv, mode), pool[C_TAU])
+        if params.temp_interp == "nearest":
+            tau = lifetime_by_sv(mat, state.T_sv, sv, mode)
+        else:
+            T_p = interp_T_particles(geo, state.T_sv, pool[C_POS].T, sv, params.temp_interp)
+            tau = lifetime_lookup(mat, T_p, mode)
+        pool[C_TAU] = torch.where(alive, tau, pool[C_TAU])
     return state
 
 

@@ -19,6 +19,21 @@ def _bin(mat: MaterialTables, T: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.searchsorted(mat.tau_T, T) - 1, 0, max(nT - 2, 0))
 
 
+def lifetime_lookup(mat: MaterialTables, T: torch.Tensor, mode: torch.Tensor) -> torch.Tensor:
+    """tau(T, mode) per particle: the T-lerp of the paired (nT, M, 2)
+    table at each particle's own temperature (the linear-interpolation
+    path; nearest temperatures take lifetime_by_sv)."""
+    nT = mat.tau_T.shape[0]
+    i = _bin(mat, T)
+    w = (T - mat.tau_T[i]) / torch.clamp(
+        mat.tau_T[torch.clamp(i + 1, max=nT - 1)] - mat.tau_T[i], min=1e-30
+    )
+    w = torch.clamp(w, 0.0, 1.0)
+    M = mat.tau.shape[1]
+    pair = mat.tau_pair.reshape(-1, 2)[i * M + mode.long()]
+    return pair[:, 0] * (1 - w) + pair[:, 1] * w
+
+
 def blend_tau_sv(mat: MaterialTables, T_sv: torch.Tensor) -> torch.Tensor:
     """(SV, M) per-subvolume lifetime table: the T-lerp of the (nT, M)
     table at each subvolume temperature (hoisted out of the event rounds)."""

@@ -121,8 +121,9 @@ class SimState:
     res_heat_flux: torch.Tensor  # (R,3) f32 ledger
     lost: torch.Tensor  # (3,) i32 [capacity drops, k_max-stuck, defective]
     frozen: torch.Tensor  # () i32 postponed-but-alive events (cumulative)
-    kernel_events: torch.Tensor  # (2,) i64 kernel A's in-kernel diffuse
-    #   re-emissions and flagged specular exports (cumulative)
+    kernel_events: torch.Tensor  # (3,) i64 kernel A's in-kernel diffuse
+    #   re-emissions and flagged specular exports, and the narrow
+    #   machinery's k-model degenerate-branch swaps (cumulative)
     gen: torch.Generator = field(repr=False)  # the run's random stream
     step: int = 0
 
@@ -394,7 +395,7 @@ def init_state(
         res_heat_flux=torch.zeros((R, 3), dtype=torch.float32, device=device),
         lost=torch.zeros(3, dtype=torch.int32, device=device),
         frozen=torch.zeros((), dtype=torch.int32, device=device),
-        kernel_events=torch.zeros(2, dtype=torch.int64, device=device),
+        kernel_events=torch.zeros(3, dtype=torch.int64, device=device),
         gen=make_generator(seed, device),
         step=0,
     )

@@ -1,10 +1,11 @@
 """Where the port's step spends its time on the card.
 
-    python scripts/torch_profile_step.py [film|wire|bigmesh]     # default: film
+    python scripts/torch_profile_step.py [film|wire|bigmesh|plate]     # default: film
 
-Builds the film (pooled reservoirs), the nanowire or the large mesh (the
-96-sided cylinder; both 'constant' reservoirs) exactly as chip_smoke.py
-does, warms up two runs of
+Builds the film (pooled reservoirs), the nanowire, the large mesh (the
+96-sided cylinder) or the perforated plate (its STL written to a temporary
+folder, Voronoi 8 subvolumes; all three 'constant' reservoirs) exactly as
+chip_smoke.py does, warms up two runs of
 n_inner = 10 steps, then records one more run with torch.profiler (CPU and
 CUDA activities). Prints the step's wall time, the device's busy share
 (summed kernel time over the wall time of the window), the launches per
@@ -31,16 +32,24 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_step: needs a CUDA card")
     from chip_smoke import (
-        BIGMESH, FILM, MESH, PARTICLES, SEED, WIRE, build_ctx, card_line, run_params,
+        BIGMESH, FILM, MESH, PARTICLES, PLATE, SEED, WIRE, build_ctx, card_line,
+        perforated_plate, run_params,
     )
     from nanokappa_torch.material import synthetic_material
     from nanokappa_torch.sim.state import init_state
     from nanokappa_torch.sim.step import build_step
 
     config = sys.argv[1] if len(sys.argv) > 1 else "film"
-    domain_kw, res_gen = {
-        "film": (FILM, "pooled"), "wire": (WIRE, "constant"), "bigmesh": (BIGMESH, "constant"),
-    }[config]
+    configs = {"film": (FILM, "pooled"), "wire": (WIRE, "constant"), "bigmesh": (BIGMESH, "constant")}
+    if config == "plate":
+        import tempfile
+
+        from nanokappa_torch.geometry import stl
+
+        stl_path = os.path.join(tempfile.mkdtemp(prefix="profile_plate_"), "plate.stl")
+        stl.save_stl(perforated_plate(), stl_path)
+        configs["plate"] = (dict(PLATE, geometry=stl_path), "constant")
+    domain_kw, res_gen = configs[config]
     device = torch.device("cuda:0")
     mat = synthetic_material(mesh=(MESH, MESH, MESH))
     dom, geo, btab = build_ctx(mat, domain_kw, device)

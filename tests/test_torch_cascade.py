@@ -103,7 +103,7 @@ def test_event_buffer_deterministic_paths(pair):
         jax.numpy.asarray(rows), jax.numpy.asarray(vbuf), j.geo, j.tabs, j.btab,
         j.params, jax.random.PRNGKey(0), j.state.T_sv, 8,
     )
-    to, tled, tstuck, tdef, tfr = run_event_buffer(
+    to, tled, tstuck, tdef, tfr, _ = run_event_buffer(
         torch.as_tensor(rows.T.copy()), torch.as_tensor(vbuf), t.geo, t.tabs, t.btab,
         t.params, torch.Generator().manual_seed(0), t.state.T_sv, 8,
     )

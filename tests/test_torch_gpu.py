@@ -351,3 +351,134 @@ def test_cuda_raycast_large_skip_keeps_results(cuda):
     assert float(solved.float().mean()) < tabs.nc / 2, solved
     assert torch.equal(_bits(tk), _bits(tp)) and torch.equal(fk.cpu(), fp.cpu())
     assert int((fp >= 0).sum()) > 0.99 * len(fp)
+
+
+def _box_ctx(device, domain_kw):
+    """A box configuration at 4^3 in the port: its tables, parameters and
+    compacted initial pool (5% of the alive lanes STALE)."""
+    from nanokappa_torch.geometry.device import build_device_geometry
+    from nanokappa_torch.geometry.domain import build_domain
+    from nanokappa_torch.material import synthetic_material
+    from nanokappa_torch.ops.compact_pool import compact_pool_plain
+    from nanokappa_torch.sim.boundary_tables import build_boundary_tables
+    from nanokappa_torch.sim.state import SimParams, init_state, particle_count
+
+    mat = synthetic_material(mesh=(4, 4, 4))
+    dom = build_domain(**domain_kw)
+    n_p, rho = particle_count(("total", 3000), mat, dom)
+    params = SimParams(
+        dt=1.0, n_cap=4096, inj_cap=512, temp_interp="nearest", res_gen="pooled",
+        particle_density=rho, n_active_modes=mat.n_active_modes, t_reference=300.0,
+    )
+    geo = build_device_geometry(dom, device)
+    btab = build_boundary_tables(mat, dom, device=device)
+    state = init_state(mat, dom, geo, params, n_p, btab, temp_dist="linear", seed=3)
+    pool, _ = compact_pool_plain(state.pool)
+    alive = torch.nonzero(pool[14] > 0.5).flatten()
+    pool[10, alive[::20]] = torch.tensor(-2, dtype=torch.int32, device=device).view(torch.float32)
+    return dom, geo, mat.device_tables(device), btab, params, pool, state.T_sv
+
+
+def _kernel_vs_twin(pool, T_sv, cfg, seed, rta_on=True):
+    """Kernel A and its twin on copies of one pool: every row, the exported
+    rows and indices and the counts bit for bit, the sums to rtol 1e-5."""
+    from nanokappa_torch.ops.megastep import drift_megastep, drift_megastep_plain
+
+    pk, pp = pool.clone(), pool.clone()
+    rk, ik, ck, lk, bk = drift_megastep(pk, T_sv, rta_on, cfg, seed=seed)
+    rp, ip, cp, lp, bp = drift_megastep_plain(pp, T_sv, rta_on, cfg, seed=seed)
+    torch.cuda.synchronize()
+    assert torch.equal(ck, cp), (ck, cp)
+    assert torch.equal(_bits(pk), _bits(pp))
+    k = int(cp[2])
+    assert torch.equal(ik, ip) and torch.equal(_bits(rk[:, :k]), _bits(rp[:, :k]))
+    for a, b in ((lk, lp), (bk, bp)):
+        a, b = a.double().cpu(), b.double().cpu()
+        scale = b.abs().sum(0, keepdim=True) + b.abs().max()
+        assert bool(((a - b).abs() <= 1e-5 * b.abs() + 1e-5 * scale).all())
+    return pk
+
+
+FILM4 = dict(
+    geometry="box", dimensions=(2e3, 1e3, 1e3), subvolumes=("slice", 5, 0),
+    bound_pos=("relative", -0.1, 0.5, 0.5, 1.1, 0.5, 0.5, 0.5, 0.5, -0.1, 0.5, 0.5, 1.1),
+    bound_cond=("T", "T", "R", "R", "P"), bound_values=(302.0, 298.0, 0.0, 0.0),
+    connect_pos=("relative", 0.5, -0.1, 0.5, 0.5, 1.1, 0.5),
+)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["slim", "plain"])
+def test_cuda_megastep_nearest_centre_256_near_ties(cuda, layout):
+    """Kernel A's nearest-centre instantiation at its 256-centre cap, on a
+    pool whose lanes sit on the faces between neighbouring centres (the
+    bisector planes: near-ties the first-minimum rule decides), bit-exact
+    against its twin. The film box re-binned by a 16 x 4 x 4 grid, with
+    eta = 0 walls (slim) or eta = 2 A walls (plain, in-kernel diffuse)."""
+    import dataclasses
+
+    from nanokappa_torch.geometry.device import build_device_geometry
+    from nanokappa_torch.geometry.subvolumes import grid_centers
+    from nanokappa_torch.ops.megastep import SV_CENTER, mega_config
+    from nanokappa_torch.sim.boundary_tables import slim_mirror_axis
+    from nanokappa_torch.sim.fused import event_window
+
+    kw = FILM4 if layout == "slim" else dict(FILM4, bound_values=(302.0, 298.0, 2.0, 2.0))
+    dom, geo, tabs, btab, params, pool, _ = _box_ctx(cuda, kw)
+    c = grid_centers(dom.mesh, np.array([16, 4, 4]))
+    gdom = dataclasses.replace(dom, subvol_type="grid", subvol_center=c,
+                               subvol_volume=np.full(len(c), dom.mesh.volume / len(c)))
+    ggeo = build_device_geometry(gdom, cuda)
+    flip = slim_mirror_axis(geo, btab, tabs) if layout == "slim" else None
+    assert (flip is not None) == (layout == "slim") and pool.shape[0] == (18 if flip is not None else 16)
+    cfg = mega_config(ggeo, tabs, btab, params, event_window(geo, tabs, btab, params), flip)
+    assert cfg.sv_mode == SV_CENTER and cfg.sv == 256
+    # half the alive lanes onto the bisector plane of a random pair of
+    # x-neighbouring centres, jittered inside the plane
+    rng = np.random.default_rng(23)
+    alive = torch.nonzero(pool[14] > 0.5).flatten().cpu().numpy()
+    lanes = alive[::2]
+    a = rng.integers(0, len(c) - 16, len(lanes))
+    b = a + 16  # the next centre along x in the grid's (x, y, z) order
+    mid = 0.5 * (c[a] + c[b])
+    mid[:, 1:] += rng.uniform(-20.0, 20.0, (len(lanes), 2))
+    pool[0:3, torch.as_tensor(lanes, device=cuda)] = torch.as_tensor(mid.T, dtype=torch.float32, device=cuda)
+    T_sv = torch.as_tensor(302.0 - 4.0 * (c[:, 0] - c[:, 0].min()) / np.ptp(c[:, 0]),
+                           dtype=torch.float32, device=cuda)
+    for rta_on in (False, True):
+        out = _kernel_vs_twin(pool, T_sv, cfg, seed=31, rta_on=rta_on)
+    sv = out[15].contiguous().view(torch.int32)
+    assert int(sv.min()) >= 0 and int(sv.max()) <= 255 and len(torch.unique(sv)) > 250
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["slim", "plain"])
+def test_cuda_megastep_linear_T_extrapolates(cuda, layout):
+    """Kernel A's linear-temperature instantiation on the film box (slim,
+    the deferred RTA at the lerped T) and on the eta = 2 A box (plain, the
+    in-kernel diffuse wall temperature too), with a third of the lanes
+    between a reservoir wall and the end slice centres (the lerp
+    extrapolates there), bit-exact against its twin."""
+    import dataclasses
+
+    from nanokappa_torch.ops.megastep import SV_LINEAR, mega_config
+    from nanokappa_torch.sim.boundary_tables import slim_mirror_axis
+    from nanokappa_torch.sim.fused import event_window
+
+    kw = FILM4 if layout == "slim" else dict(FILM4, bound_values=(302.0, 298.0, 2.0, 2.0))
+    dom, geo, tabs, btab, params, pool, T_sv = _box_ctx(cuda, kw)
+    params = dataclasses.replace(params, temp_interp="linear")
+    flip = slim_mirror_axis(geo, btab, tabs) if layout == "slim" else None
+    cfg = mega_config(geo, tabs, btab, params, event_window(geo, tabs, btab, params), flip)
+    assert cfg.sv_mode == SV_LINEAR
+    rng = np.random.default_rng(29)
+    alive = torch.nonzero(pool[14] > 0.5).flatten().cpu().numpy()
+    lanes = alive[::3]
+    c0, c1 = float(dom.subvol_center[0, 0]), float(dom.subvol_center[-1, 0])
+    lo, hi = dom.mesh.bounds[:, 0]
+    x = np.where(rng.random(len(lanes)) < 0.5, rng.uniform(lo + 1.0, c0, len(lanes)),
+                 rng.uniform(c1, hi - 1.0, len(lanes)))
+    pool[0, torch.as_tensor(lanes, device=cuda)] = torch.as_tensor(x, dtype=torch.float32, device=cuda)
+    T_sv = torch.tensor([301.5, 300.5, 300.2, 299.1, 298.4], device=cuda)
+    for rta_on in (False, True):
+        _kernel_vs_twin(pool, T_sv, cfg, seed=37, rta_on=rta_on)

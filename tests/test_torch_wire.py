@@ -158,25 +158,32 @@ def test_constant_positions_cover_the_caps_by_area(wire):
 @pytest.mark.parametrize("change, item", [
     (dict(params=dict(res_gen="fixed_rate")), 5),
     (dict(params=dict(res_gen="one_to_one")), 5),
-    (dict(params=dict(temp_interp="linear")), 10),
-    (dict(params=dict(scat_model="k")), 10),
+    # (the ids are kept from when the port refused every linear, k-model
+    # and grid configuration; it now runs linear T on slices, the k model
+    # off the mirror path and up to 256 grid centres, and refuses the rest)
+    (dict(params=dict(temp_interp="linear"), geo=dict(subvol_type="grid")), 11),
+    (dict(params=dict(scat_model="k"), mirror=True), 10),
     (dict(params=dict(n_shards=2)), 12),
-    (dict(geo=dict(subvol_type="grid")), 10),
+    (dict(geo=dict(subvol_type="grid", n_subvols=257)), 11),
     # (the id is kept from when meshes over 128 triangles raised; they now
     # run kernel A with kernel_cast off, and only meshes beyond kernel E's
     # 65,536 triangles raise)
     (dict(geo=dict(tri_origin=torch.zeros((65537, 3)))), 11),
 ], ids=["fixed_rate", "one_to_one", "linear_interp", "k_model", "two_shards", "grid", "200_triangles"])
-def test_configs_outside_the_ported_paths_raise(wire, change, item):
+def test_configs_outside_the_ported_paths_raise(wire, change, item, monkeypatch):
     """Every configuration the port does not run yet raises, naming the
-    ROADMAP item that ports it."""
+    ROADMAP item that ports it (the k model on a mirror-eligible
+    configuration: the wire's walls are not, so the gate is forced)."""
     import dataclasses
 
+    from nanokappa_torch.sim import fused
     from nanokappa_torch.sim.fused import require_slice
 
     _, t = wire
     geo = dataclasses.replace(t.geo, **change.get("geo", {}))
     params = dataclasses.replace(t.params, **change.get("params", {}))
+    if change.get("mirror"):
+        monkeypatch.setattr(fused, "mirror_eligible", lambda *a, **k: True)
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         require_slice(geo, t.btab, params, t.tabs)
 

@@ -51,6 +51,64 @@ WIRE = dict(
 )
 
 
+def perforated_plate(L=3e3, W=3e3, H=1e3, a=600.0):
+    """The perforated plate of tests/test_porous.py (BASELINE config 4): an
+    L x W x H box with a square hole of side 2a through z at its centre, 32
+    triangles, as the port's TriMesh."""
+    from nanokappa_torch.geometry.mesh import TriMesh
+
+    cx, cy = L / 2, W / 2
+    O = [(0, 0), (L, 0), (L, W), (0, W)]
+    I = [(cx - a, cy - a), (cx + a, cy - a), (cx + a, cy + a), (cx - a, cy + a)]
+    v = []
+    for z in (0.0, H):
+        v += [(x, y, z) for x, y in O]
+    for z in (0.0, H):
+        v += [(x, y, z) for x, y in I]
+    v = np.array(v, dtype=float)
+    OB, OT, IB, IT = 0, 4, 8, 12
+    faces = []
+    for k in range(4):
+        k2 = (k + 1) % 4
+        faces += [[OB + k, IB + k, OB + k2], [OB + k2, IB + k, IB + k2]]
+        faces += [[OT + k, OT + k2, IT + k], [OT + k2, IT + k2, IT + k]]
+        faces += [[OB + k, OB + k2, OT + k], [OB + k2, OT + k2, OT + k]]
+        faces += [[IB + k, IT + k, IB + k2], [IB + k2, IT + k, IT + k2]]
+    return TriMesh(v, np.array(faces))
+
+
+def plate_kw(path: str) -> dict:
+    """The plate's domain: Voronoi 8, T reservoirs at 304 / 296 K on the two
+    x faces, every other facet rough at eta = 5 A (the hole's walls too)."""
+    return dict(
+        geometry=path, subvolumes=("voronoi", 8),
+        bound_pos=("relative", -0.1, 0.5, 0.5, 1.1, 0.5, 0.5),
+        bound_cond=("T", "T", "R"), bound_values=(304.0, 296.0, 5.0),
+        connect_pos=("relative",),
+    )
+
+
+# the Lloyd centres of the plate's 8 Voronoi cells (seed 0), rounded: the
+# Lloyd iteration costs ~50 s of CPU, so parity tests patch it with these
+PLATE_CENTERS = np.array([
+    [424.2, 1482.6, 489.9], [485.9, 489.8, 501.3], [512.8, 2509.4, 476.7],
+    [1514.7, 438.1, 477.3], [1537.3, 2572.6, 484.8], [2492.8, 513.7, 523.4],
+    [2523.2, 2485.2, 513.9], [2584.1, 1510.1, 499.2],
+])
+
+
+def patch_lloyd(monkeypatch, centers=PLATE_CENTERS):
+    """Both packages' Voronoi splits take `centers` (no Lloyd run)."""
+    from nanokappa_torch.geometry import subvolumes as t_sub
+
+    monkeypatch.setattr(t_sub, "lloyd_centers", lambda mesh, n, rng=None, **k: centers[:n].copy())
+    try:
+        from nanokappa_tpu.geometry import subvolumes as j_sub
+    except ImportError:
+        return
+    monkeypatch.setattr(j_sub, "lloyd_centers", lambda mesh, n, rng=None, **k: centers[:n].copy())
+
+
 def jax_fields(obj) -> dict:
     """A JAX dataclass as the dict of NumPy arrays convert.py takes."""
     return {f.name: np.asarray(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
