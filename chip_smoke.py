@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (`nanokappa_torch`).
 
-    python3 chip_smoke.py     # film, nanowire, k film, plate, large mesh: 1e6 particles, 31^3 table
+    python3 chip_smoke.py     # film, nanowire, k films, plate, large mesh: 1e6 particles, 31^3 table
 
 Needs one CUDA card. In order it:
   1. prints the card's name and power limit (nvidia-smi),
@@ -28,12 +28,19 @@ Needs one CUDA card. In order it:
      `grid 16 4 4` domain (256 centres) for 100 steps each, kernel A's
      slice/linear and centre/nearest instantiations on the slim pool, both
      held against their twins on the film's pool first,
-  7. drives the k-model, linear-temperature film (the bench film with
-     eta = 2 A walls: off the mirror path; the bench film's eta = 0 k map
-     is checked to be mirror-eligible, which the port still refuses) like
-     step 5, counts the narrow machinery's degenerate-branch swaps, and
-     holds kernel A's linear in-kernel-diffuse instantiation against its
-     twin on its pool,
+  7. drives the bench film under the k model (eta = 0 walls, pooled
+     reservoirs: mirror-eligible with degenerate partner branches, so on
+     kernel A's full 24-row mirror, the split drawn at cache fill) through
+     the driver entry, `Simulation(read_args(argv), material=mat).run()`,
+     for 500 steps at 10^6 particles, counting the split at initialisation,
+     with its physics gates; holds the full branch's box instantiations
+     (slice/nearest, slice/linear, centre/nearest) against their twins on
+     its pool and kernel B on that 24-row pool; then the k-model,
+     linear-temperature film with eta = 2 A walls (off the mirror path)
+     like step 5, counting the narrow machinery's degenerate-branch swaps,
+     with kernel A's linear in-kernel-diffuse instantiation held against
+     its twin on its pool (the full branch's triangle instantiations are
+     held on the wire's and the plate's pools with a crafted mirror cache),
   8. drives the perforated plate (BASELINE config 4: a 32-triangle STL
      written into the run's folder, Voronoi 8 subvolumes, 'constant'
      reservoirs) through the driver entry, `Simulation(read_args(argv),
@@ -58,6 +65,7 @@ one JSON line with the kernels' numbers, and
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -110,6 +118,8 @@ PLATE = dict(
     connect_pos=("relative",),
 )
 PLATE_STEPS = 300
+K0_STEPS = 500  # the eta = 0 k film through the driver (full 24-row mirror)
+GATE_RTOL = 1e-6  # combined_mirror_rows' involution gate on partner frequencies
 GRID = (16, 4, 4)  # the film re-binned: 256 centres, the nearest-centre loop's cap
 
 
@@ -263,7 +273,7 @@ def check_megastep(name, pool_c, T_sv, cfg, seed, source_ops):
     from nanokappa_torch.ops.megastep import R8, SV_CENTER
     from nanokappa_torch.sim.state import C_ALIVE, C_CF, C_MODE, C_ONF, C_SV, R_MMODE
 
-    int_rows = [C_MODE, C_CF, C_ONF, C_SV, C_ALIVE] + ([R_MMODE] if cfg.layout == "slim" else [])
+    int_rows = [C_MODE, C_CF, C_ONF, C_SV, C_ALIVE] + ([R_MMODE] if cfg.layout != "plain" else [])
     err, how = 0.0, "bit-exact"
     for rta_on in (False, True):
         pk, pp = pool_c.clone(), pool_c.clone()
@@ -310,7 +320,7 @@ def check_megastep(name, pool_c, T_sv, cfg, seed, source_ops):
     )
 
 
-def check_compact_pool(pools):
+def check_compact_pool(pools, name="compact_pool"):
     """Kernel B against its twin on each pool; timed, with its library call
     (boolean-mask column selection into a zeroed buffer), on the last."""
     import torch
@@ -334,7 +344,7 @@ def check_compact_pool(pools):
     C, N = pool.shape
     b_ms, b_by = bound(2 * C * N * 4, 0)
     return dict(
-        name="compact_pool", route="cuda", source="nanokappa_torch/csrc/compact_pool.cu",
+        name=name, route="cuda", source="nanokappa_torch/csrc/compact_pool.cu",
         replaces="nanokappa_tpu/ops/compact_pool.py:186", max_abs_err=0.0, match="bit-exact",
         ms=timed(lambda p: compact_pool.compact_pool(p, out), pool, 20),
         plain_ms=timed(lambda p: compact_pool.compact_pool_plain(p, out), pool, 5),
@@ -485,22 +495,22 @@ def perforated_plate(L=3e3, W=3e3, H=1e3, a=600.0):
     return TriMesh(v, np.array(faces))
 
 
-def plate_argv(folder: str, stl_path: str, device) -> list[str]:
-    """The plate as CLI arguments, sized as bench.py:run_config sizes a
-    cell (10^6 particles, pool margin 1.25, nearest temperatures, linear
-    initial profile, 'constant' reservoirs)."""
+def cli_argv(b: dict, folder: str, device, steps: int, res_gen: str, extra=()) -> list[str]:
+    """A configuration as CLI arguments, sized as bench.py:run_config sizes
+    a cell (10^6 particles, pool margin 1.25, nearest temperatures, linear
+    initial profile)."""
     def words(v):
         return [str(x) for x in v]
 
-    b = PLATE
+    dims = ["--dimensions", *words(b["dimensions"])] if "dimensions" in b else []
     return [
         "--mat_folder", ".", "--hdf_file", "synthetic", "--poscar_file", "synthetic",
-        "--geometry", stl_path, "--subvolumes", *words(b["subvolumes"]),
+        "--geometry", b["geometry"], *dims, "--subvolumes", *words(b["subvolumes"]),
         "--bound_pos", *words(b["bound_pos"]), "--bound_cond", *b["bound_cond"],
         "--bound_values", *words(b["bound_values"]), "--connect_pos", *words(b["connect_pos"]),
         "--temp_dist", "linear", "--temp_interp", "nearest",
         "--particles", "total", f"{PARTICLES:.0f}", "--pool_margin", "1.25",
-        "--timestep", "1", "--iterations", str(PLATE_STEPS), "--reservoir_gen", "constant",
+        "--timestep", "1", "--iterations", str(steps), "--reservoir_gen", res_gen, *extra,
         "--seed", str(SEED), "--results_folder", folder, "--output", "screen",
         "--device", str(device),
     ]
@@ -530,7 +540,8 @@ def plate_main(mat, card, device):
     for m in mods:
         m.launches = 0
     t0 = time.perf_counter()
-    sim = Simulation(read_args(plate_argv(os.path.join(td, "res"), stl_path, device)), material=mat)
+    argv = cli_argv(dict(PLATE, geometry=stl_path), os.path.join(td, "res"), device, PLATE_STEPS, "constant")
+    sim = Simulation(read_args(argv), material=mat)
     t_setup = time.perf_counter() - t0
     sim.run(verbose=False)
     torch.cuda.synchronize()
@@ -590,6 +601,136 @@ def plate_main(mat, card, device):
     return sim, td, launches, checks
 
 
+def mirror_cache_stats(pool, btab, tabs):
+    """(partnered, took, worst): over the alive lanes of a full-layout
+    pool, those whose mirror partner has a degenerate branch, those whose
+    cache holds the branch (the split took it), and the largest relative
+    frequency gap between a lane's mode and its cached partner's."""
+    import torch
+
+    from nanokappa_torch.sim.boundary_tables import combined_mirror_rows
+    from nanokappa_torch.sim.state import C_ALIVE, C_MODE, C_OMEGA, R_MMODE
+
+    alive = pool[C_ALIVE] > 0.5
+    mode = pool[C_MODE].view(torch.int32)[alive].long()
+    xm = pool[R_MMODE].view(torch.int32)[alive].long()
+    cmr = torch.as_tensor(combined_mirror_rows(btab, tabs)[:, 1].view("int32"), device=pool.device)
+    corr = cmr[mode].long()
+    dp = btab.degen_partner.long()
+    part = dp[corr.clamp(min=0)]
+    partnered = (corr >= 0) & (part >= 0)
+    took = partnered & (xm == part)
+    has = xm >= 0
+    om = tabs.omega_vel[:, 0].double()
+    own = pool[C_OMEGA][alive].double()
+    gap = torch.where(has, (om[xm.clamp(min=0)] - own).abs() / own.abs().clamp(min=1e-30), 0.0)
+    return int(partnered.sum()), int(took.sum()), float(gap.max())
+
+
+def kfilm0_main(mat, card, device):
+    """The bench film (eta = 0 walls) under the k model through the driver:
+    mirror-eligible with degenerate partners, so it runs kernel A's full
+    24-row mirror. The launch counters are zeroed just before the
+    Simulation is built and read after its run; the split drawn at cache
+    fill is counted between the two. Returns (sim, its folder, launches,
+    checks)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nanokappa_torch.driver import Simulation
+    from nanokappa_torch.io.config import read_args
+    from nanokappa_torch.ops import compact, compact_pool, megastep
+    from nanokappa_torch.sim.fused import event_window
+
+    mods = (megastep, compact_pool, compact)
+    for m in mods:
+        m.launches = 0
+    t0 = time.perf_counter()
+    td = tempfile.mkdtemp(prefix="chip_smoke_kfilm0_")
+    sim = Simulation(read_args(cli_argv(FILM, td, device, K0_STEPS, "pooled", ("--bound_scat", "k"))),
+                     material=mat)
+    t_setup = time.perf_counter() - t0
+    part0, took0, gap0 = mirror_cache_stats(sim.state.pool, sim.btab, sim.mtab)
+    sim.run(verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {m.__name__.rsplit(".", 1)[1]: m.launches for m in mods}
+    _, _, gap1 = mirror_cache_stats(sim.state.pool, sim.btab, sim.mtab)
+
+    tm = sim.timer
+    row = sim.window[-1]
+    n0, n_alive = sim.n_p_target, int(row["N_p"])
+    lost, T = row["lost_split"], row["T"]
+    steps_t = tm.calls["device_step"][-3:]
+    ups = n_alive * 300 / sum(steps_t)
+    evt = event_window(sim.geo, sim.mtab, sim.btab, sim.params)
+    events = sim.state.kernel_events.tolist()
+    share = took0 / max(1, part0)
+    print(f"k film eta = 0: layout {sim.state.layout}, {n0} particles, pool {sim.params.n_cap}, "
+          f"inj_cap {sim.params.inj_cap}, evt_cap {evt} (regrows {sim.evt_regrows}); split at "
+          f"init {took0} of {part0} partnered caches took the branch ({share:.5f}); largest "
+          f"partner frequency gap {gap0:.3g} at init, {gap1:.3g} after the run", flush=True)
+    print(f"k film eta = 0: T_sv {[round(float(t), 3) for t in T]}", flush=True)
+    print(f"k film eta = 0: N_p {n_alive} (start {n0}), lost {lost.tolist()}, frozen "
+          f"{row['frozen']}, escaped {sim.n_escaped_total}, launches {launches}, kernel A exports "
+          f"{events[3]} ({events[3] / K0_STEPS:.1f} a step), narrow-machinery swaps {events[2]}",
+          flush=True)
+    print(f"k film eta = 0: {ups:.4g} updates/s ({sum(steps_t) / 300 * 1e3:.3f} ms/step, "
+          f"device_step of the last 3 blocks) on {card}; driver wall {wall:.1f} s (setup "
+          f"{t_setup:.1f} s)", flush=True)
+    print("k film eta = 0: " + tm.report().replace("\n", "\nk film eta = 0: "), flush=True)
+    checks = {
+        "k film eta = 0: full 24-row mirror layout": sim.state.layout == "full"
+        and sim.state.pool.shape[0] == 24,
+        "k film eta = 0: lost == 0": sum(lost) == 0,
+        "k film eta = 0: population within 5%": abs(n_alive - n0) <= 0.05 * n0,
+        "k film eta = 0: T_sv in (298, 302)": bool(((T > 298.0) & (T < 302.0)).all()),
+        "k film eta = 0: T_sv falling hot to cold": bool((np.diff(T) < 0).all()),
+        "k film eta = 0: frozen == 0": int(row["frozen"]) == 0,
+        "k film eta = 0: exports per step under the event window": events[3] / K0_STEPS < evt,
+        "k film eta = 0: split share at init within 0.5 +- 0.005": abs(share - 0.5) <= 0.005,
+        f"k film eta = 0: partner frequencies within rtol {GATE_RTOL}": max(gap0, gap1) <= GATE_RTOL,
+        "k film eta = 0: A, B, C launched": all(v > 0 for v in launches.values()),
+        f"k film eta = 0: {K0_STEPS} steps run": sim.current_timestep == K0_STEPS,
+    }
+    return sim, td, launches, checks
+
+
+def crafted_full_pool(pool16, T_sv, tabs, seed):
+    """A 24-row full-mirror pool from a 16-row one: two thirds of the alive
+    lanes cache a random partner mode (its omega and velocity, both slope
+    pairs on the lane's T-grid bin, C_TAU turned into the intercept), the
+    rest none. Kernel A's full branch on a geometry whose walls have no
+    full mirror of their own."""
+    import torch
+
+    from nanokappa_torch.sim.scatter import slope_pair
+    from nanokappa_torch.sim.state import C_ALIVE, C_MODE, C_SV, C_TAU
+
+    d = pool16.device
+    N = pool16.shape[1]
+    M = tabs.omega_vel.shape[0]
+    g = torch.Generator(device=d).manual_seed(seed)
+    xm = torch.randint(0, M, (N,), generator=g, device=d, dtype=torch.int32)
+    xm = torch.where((torch.rand(N, generator=g, device=d) < 2 / 3) & (pool16[C_ALIVE] > 0.5), xm, -1)
+    has = xm >= 0
+    sv = pool16[C_SV].view(torch.int32).clamp(0, T_sv.shape[0] - 1)
+    mode = pool16[C_MODE].view(torch.int32).clamp(0, M - 1)
+    a, b = slope_pair(tabs, T_sv, sv, mode)
+    a_m, b_m = slope_pair(tabs, T_sv, sv, xm.clamp(min=0))
+    ov = tabs.omega_vel[xm.clamp(min=0).long()]
+    pool = torch.cat([pool16, torch.stack([
+        xm.view(torch.float32), torch.where(has, ov[:, 0], 0.0),
+        *[torch.where(has, ov[:, 1 + k], 0.0) for k in range(3)],
+        torch.where(has, a_m, 0.0), b, torch.where(has, b_m, 0.0),
+    ])]).contiguous()
+    pool[C_TAU] = torch.where(pool16[C_ALIVE] > 0.5, a, pool16[C_TAU])
+    return pool
+
+
 def grid_film(f_dom, device):
     """The film's domain and geometry re-binned by a GRID of centres (the
     `grid_centers` in build_domain's order; a box's cells have equal volumes)."""
@@ -638,28 +779,6 @@ def short_path(name, mat, dom, geo, btab, rtab, params, n_p, tabs, card):
     return out, n0, n
 
 
-def bigmesh_argv(folder: str, device) -> list[str]:
-    """The large mesh as CLI arguments, sized as bench.py:run_config sizes
-    it (10^6 particles, pool margin 1.25, nearest temperatures, linear
-    initial profile, 'constant' reservoirs)."""
-    def words(v):
-        return [str(x) for x in v]
-
-    b = BIGMESH
-    return [
-        "--mat_folder", ".", "--hdf_file", "synthetic", "--poscar_file", "synthetic",
-        "--geometry", b["geometry"], "--dimensions", *words(b["dimensions"]),
-        "--subvolumes", *words(b["subvolumes"]), "--bound_pos", *words(b["bound_pos"]),
-        "--bound_cond", *b["bound_cond"], "--bound_values", *words(b["bound_values"]),
-        "--connect_pos", *words(b["connect_pos"]),
-        "--temp_dist", "linear", "--temp_interp", "nearest",
-        "--particles", "total", f"{PARTICLES:.0f}", "--pool_margin", "1.25",
-        "--timestep", "1", "--iterations", str(BIG_STEPS), "--reservoir_gen", "constant",
-        "--seed", str(SEED), "--results_folder", folder, "--output", "screen",
-        "--device", str(device),
-    ]
-
-
 def conv_columns(n_res: int, n_sv: int) -> int:
     """Columns of a convergence.txt row of slice subvolumes, as the JAX
     driver's writer lays them out (nanokappa_tpu/io/writers.py
@@ -689,7 +808,7 @@ def bigmesh_main(mat, card, device):
         m.launches = 0
     t0 = time.perf_counter()
     td = tempfile.mkdtemp(prefix="chip_smoke_bigmesh_")
-    sim = Simulation(read_args(bigmesh_argv(td, device)), material=mat)
+    sim = Simulation(read_args(cli_argv(BIGMESH, td, device, BIG_STEPS, "constant")), material=mat)
     t_setup = time.perf_counter() - t0
     sim.run(verbose=False)
     torch.cuda.synchronize()
@@ -849,8 +968,8 @@ def main(device=None) -> None:
     from nanokappa_torch.material import synthetic_material
     from nanokappa_torch.ops import _cuda
     from nanokappa_torch.ops.megastep import mega_config
-    from nanokappa_torch.sim.boundary_tables import build_boundary_tables, slim_mirror_axis
-    from nanokappa_torch.sim.fused import event_window, mirror_eligible, require_slice
+    from nanokappa_torch.sim.boundary_tables import slim_mirror_axis
+    from nanokappa_torch.sim.fused import event_window, mirror_eligible
     from nanokappa_torch.sim.reservoir import constant_counts
     from nanokappa_torch.sim.state import C_CF, C_ALIVE, STALE, init_state
     from nanokappa_torch.sim.step import build_step
@@ -907,6 +1026,18 @@ def main(device=None) -> None:
                                n_fresh * 45 * w_cfg.tris.shape[0]),
         "pool": check_compact_pool([f_pre.pool, w_pre.pool]),
     }
+    # kernel A's full mirror on the triangle cast (slice/nearest and
+    # slice/linear): the wire's pool with a crafted 24-row mirror cache (no
+    # configuration puts a mesh on the full mirror at this grid)
+    wf_pool = crafted_full_pool(w_pool, w_pre.T_sv, tabs, 2)
+    wl_params = dataclasses.replace(w_params, temp_interp="linear")
+    off_path = [
+        check_megastep(f"drift_megastep[wire full{tag}, crafted]", wf_pool, w_pre.T_sv,
+                       mega_config(w_geo, tabs, w_btab, prm, w_evt, layout="full"), 2,
+                       n_fresh * 45 * w_cfg.tris.shape[0])
+        for tag, prm in (("", w_params), (" linear", wl_params))
+    ]
+    del wf_pool
     # kernel C: the film's survivors (2048 -> 512), the wire's (E -> E/8) and
     # the 'constant' lattice (c_max x R x M -> inj_cap) of this wire
     g = torch.Generator(device=device).manual_seed(7)
@@ -917,7 +1048,7 @@ def main(device=None) -> None:
     counts = torch.as_tensor(counts, device=device)
     lattice = counts[None, :] > torch.arange(w_params.c_max, device=device)[:, None]
     recs["lattice"] = check_compact("compact_indices[lattice]", [lattice.reshape(-1)], w_params.inj_cap)
-    for r in recs.values():
+    for r in list(recs.values()) + off_path:
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms'] and round(r['library_ms'], 4)} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']:.3g} "
@@ -994,33 +1125,30 @@ def main(device=None) -> None:
     del out
     torch.cuda.empty_cache()
 
-    # ---- the k model: the bench film's eta = 0 map is on the mirror path
-    # (refused: the next slice); its eta = 2 A film runs off it -----------------
-    t0 = time.perf_counter()
-    k0_btab = build_boundary_tables(mat, f_dom, "k", device=device)
-    k_params = dataclasses.replace(f_params, temp_interp="linear", scat_model="k")
-    kh = k0_btab._host
-    vel = mat.group_vel.reshape(-1, 3)
-    incident = np.stack([vel @ n > 1e-12 for n in kh["u_normals"]])
-    covered = (kh["corr"] >= 0) & incident
-    zero_rows = [r for r in range(k0_btab.n_rows) if kh["creation"][r].sum() == 0.0]
-    # a diffuse draw reaches a row only from an incident mode without a
-    # specular partner (the eta = 0 walls reflect every partnered mode)
-    unpartnered = [int((incident[r] & (kh["corr"][r] < 0)).sum()) for r in zero_rows]
-    print(f"k film eta = 0: k-map coverage {float((kh['corr'] >= 0).mean()):.4g} of all modes, "
-          f"{float(covered.sum() / incident.sum()):.4g} of wall-incident modes; rows with zero "
-          f"diffuse creation {zero_rows} (uniform alias fallback), incident modes without a "
-          f"partner there {unpartnered}; tables {time.perf_counter() - t0:.1f} s", flush=True)
-    k0_refused = False
-    try:
-        require_slice(f_geo, k0_btab, k_params, tabs)
-    except NotImplementedError as e:
-        k0_refused = "item 10" in str(e)
-        print(f"k film eta = 0: refused: {e}", flush=True)
-    checks["k film eta = 0: mirror-eligible and refused (item 10)"] = (
-        mirror_eligible(f_geo, k0_btab, k_params, tabs) and k0_refused
+    # ---- the k model on the mirror path: the bench film's eta = 0 map
+    # through the driver, on kernel A's full 24-row mirror ---------------------
+    sim, sim_dir, k0_launch, k0_checks = kfilm0_main(mat, card, device)
+    checks.update(k0_checks)
+    k0_evt = event_window(sim.geo, sim.mtab, sim.btab, sim.params)
+    k0_pool = with_fresh(sim.state.pool, device)
+    recs["kfilm0"] = check_megastep(
+        "drift_megastep[k film full]", k0_pool, sim.state.T_sv,
+        mega_config(sim.geo, sim.mtab, sim.btab, sim.params, k0_evt, layout="full"), 6, 0,
     )
-    del k0_btab
+    recs["pool_full"] = check_compact_pool([sim.state.pool], "compact_pool[24 rows]")
+    # the full branch's other instantiations, held on the same pool: the
+    # box cast under linear T and on the 256-centre grid
+    full_off = [
+        check_megastep("drift_megastep[k film full linear]", k0_pool, sim.state.T_sv,
+                       mega_config(sim.geo, sim.mtab, sim.btab, fl_params, k0_evt, layout="full"), 6, 0),
+        check_megastep("drift_megastep[k film full centre 256]", k0_pool, g_T.contiguous(),
+                       mega_config(g_geo, sim.mtab, sim.btab, f_params, k0_evt, layout="full"), 6, 0),
+    ]
+    del sim, k0_pool
+    shutil.rmtree(sim_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # ---- the k model off the mirror path: its eta = 2 A film -------------------
     k_dom, k_geo, k_btab = build_ctx(mat, KFILM, device, "k")
     k_np, k_rtab, k_params = run_params(mat, k_dom, PARTICLES, "pooled", device)
     k_params = dataclasses.replace(k_params, temp_interp="linear", scat_model="k")
@@ -1047,8 +1175,6 @@ def main(device=None) -> None:
     torch.cuda.empty_cache()
 
     # ---- the plate through the driver, then its kernel check -----------------
-    import shutil
-
     sim, sim_dir, p_launch, p_checks = plate_main(mat, card, device)
     checks.update(p_checks)
     p_pool = with_fresh(sim.state.pool, device)
@@ -1057,11 +1183,18 @@ def main(device=None) -> None:
                         event_window(sim.geo, sim.mtab, sim.btab, sim.params))
     recs["plate"] = check_megastep("drift_megastep[plate centre 8]", p_pool, sim.state.T_sv, p_cfg, 5,
                                    p_fresh * 45 * p_cfg.tris.shape[0])
+    # the full branch's triangle cast in the centre mode, on the plate's
+    # pool with a crafted mirror cache
+    full_off.append(check_megastep(
+        "drift_megastep[plate full centre 8, crafted]", crafted_full_pool(p_pool, sim.state.T_sv, tabs, 8),
+        sim.state.T_sv, mega_config(sim.geo, sim.mtab, sim.btab, sim.params, p_cfg.ecap, layout="full"),
+        5, p_fresh * 45 * p_cfg.tris.shape[0],
+    ))
     del sim, p_pool
     shutil.rmtree(sim_dir, ignore_errors=True)
     torch.cuda.empty_cache()
-    for k in ("film_linear", "film_centre256", "kfilm_linear", "plate"):
-        r = recs[k]
+    for r in [recs[k] for k in ("film_linear", "film_centre256", "kfilm0", "pool_full", "kfilm_linear",
+                                "plate")] + full_off:
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']:.3g} "
               f"({r['match']})", flush=True)
@@ -1092,6 +1225,8 @@ def main(device=None) -> None:
     recs["film_linear"]["launches"] = fl_launch
     recs["film_centre256"]["launches"] = g_launch
     recs["kfilm_linear"]["launches"] = k_launch["megastep"]
+    recs["kfilm0"]["launches"] = k0_launch["megastep"]
+    recs["pool_full"]["launches"] = k0_launch["compact_pool"]
     recs["plate"]["launches"] = p_launch["megastep"]
     for k in ("E_pool", "E_inj", "E_evt"):
         recs[k]["launches"] = b_launch["raycast_large"]

@@ -8,11 +8,13 @@ imports neither jax nor the JAX package.
     packed (N, 16) row matrix and an (N, 8) specular-mirror cache; the port
     carries one pool in the layout its tag names (sim/state.py): "slim" is
     (18, N), the 16 columns as rows, then the mirror's partner mode and
-    lifetime slope; "plain" is the 16 rows alone (a JAX in-kernel-diffuse
-    pool's derived rows 16-17, |k|^2 and the partner bitmask, are dropped:
-    the port's kernel gathers them per mode). Back to JAX, the slim layout
-    rebuilds the full mirror cache (exact under the slim gate); the plain
-    layout gives an unfilled one (X_MODE = -1).
+    lifetime slope; "full" is (24, N), the 16 columns then the whole
+    mirror cache's 8; "plain" is the 16 rows alone (a JAX
+    in-kernel-diffuse pool's derived rows 16-17, |k|^2 and the partner
+    bitmask, are dropped: the port's kernel gathers them per mode). Back to
+    JAX, the slim layout rebuilds the full mirror cache (exact under the
+    slim gate), the full layout gives its rows 16-23 back, and the plain
+    layout gives an unfilled cache (X_MODE = -1).
   * `tables_from_jax`: MaterialTables, DeviceGeometry (the triangle tables
     and the grid/voronoi centres included; the centres' |c|^2 are derived
     from them), BoundaryTables (diff2 included) and ReservoirTables, field
@@ -34,7 +36,7 @@ from nanokappa_torch.sim.state import (
 
 
 def state_from_jax(d: dict, layout: str, device=None, seed: int = 0) -> SimState:
-    """The port's SimState, in `layout` ("slim" | "plain"), from a JAX
+    """The port's SimState, in `layout` ("slim" | "full" | "plain"), from a JAX
     SimState's arrays (on `device`, the card unless named). The port's
     random stream is a torch Generator seeded with `seed` (threefry keys do
     not carry over)."""
@@ -43,6 +45,8 @@ def state_from_jax(d: dict, layout: str, device=None, seed: int = 0) -> SimState
     if layout == "slim":
         mirror = np.asarray(d["mirror"], np.float32)
         pool = np.concatenate([packed.T, mirror[:, [X_MODE, X_TAUB]].T], axis=0)
+    elif layout == "full":
+        pool = np.concatenate([packed.T, np.asarray(d["mirror"], np.float32).T], axis=0)
     elif layout == "plain":
         pool = packed.T
     else:
@@ -64,7 +68,7 @@ def state_from_jax(d: dict, layout: str, device=None, seed: int = 0) -> SimState
         res_heat_flux=t("res_heat_flux", np.float32),
         lost=t("lost", np.int32),
         frozen=t("frozen", np.int32),
-        kernel_events=torch.zeros(3, dtype=torch.int64, device=device),
+        kernel_events=torch.zeros(4, dtype=torch.int64, device=device),
         gen=make_generator(seed, device),
         step=int(np.asarray(d["step"])),
     )
@@ -84,6 +88,8 @@ def state_to_jax(state: SimState, flip_axis: int | None = None) -> dict:
 
     if state.layout == "slim":
         mirror = a(expand_slim_mirror(pool, flip_axis))
+    elif state.layout == "full":
+        mirror = np.ascontiguousarray(a(pool[16:]).T)
     else:
         mirror = np.zeros((n, M_COLS), np.float32)
         mirror[:, X_MODE] = np.full(n, -1, np.int32).view(np.float32)

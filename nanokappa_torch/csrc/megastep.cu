@@ -1,25 +1,31 @@
 // Kernel A — the drift megastep: one thread per lane of the (C, N) SoA pool,
 // updated in place. C = 18 on the "slim" layout (16 particle rows + the
-// slim-mirror partner mode and lifetime slope), 16 on the "plain" layout
-// (full cached lifetimes; rough walls diffuse in-kernel). Replaces the
-// Pallas kernel nanokappa_tpu/ops/megastep.py (drift_megastep :1067 /
-// _kernel :298) for the box and triangle casts (_tri_raycast :244), slice
-// subvolumes with nearest or linear temperatures (_T_interp :496-528),
-// grid/voronoi subvolumes by nearest centre (_sv_of :436-481), the slim
-// mirror, in-kernel diffuse reflection (:382-402, :709-845, :883-888) and
-// the export of pending lanes (:890-944), and its kernel_cast-off branch for
-// large meshes (:548-570, :862-864, :1183-1190). Python wrapper, plain twin
-// and the per-lane algorithm: nanokappa_torch/ops/megastep.py.
+// slim-mirror partner mode and lifetime slope), 24 on the "full" layout
+// (16 particle rows + the whole mirror cache: partner mode, omega,
+// velocity, lifetime intercept, the main and the partner's slopes), 16 on
+// the "plain" layout (full cached lifetimes; rough walls diffuse
+// in-kernel). Replaces the Pallas kernel nanokappa_tpu/ops/megastep.py
+// (drift_megastep :1067 / _kernel :298) for the box and triangle casts
+// (_tri_raycast :244), slice subvolumes with nearest or linear
+// temperatures (_T_interp :496-528), grid/voronoi subvolumes by nearest
+// centre (_sv_of :436-481), the slim and the full mirror (:414-428,
+// :689-707), in-kernel diffuse reflection (:382-402, :709-845, :883-888)
+// and the export of pending lanes (:890-944), and its kernel_cast-off
+// branch for large meshes (:548-570, :862-864, :1183-1190). Python wrapper,
+// plain twin and the per-lane algorithm: nanokappa_torch/ops/megastep.py.
 //
-// Templates: TRI (triangle cast, else the box slab cast) x SLIM (the slim
-// mirror, else the plain layout) x PRECAST (kernel_cast off: no cast and no
-// event round; injections arrive pre-cast with t_enc = -t/dt - 1 in C_TCOLL
+// Templates: TRI (triangle cast, else the box slab cast) x LAY (the pool
+// layout: plain, slim or full mirror) x PRECAST (kernel_cast off: no cast
+// and no event round; injections arrive pre-cast with t_enc = -t/dt - 1 in C_TCOLL
 // and the real facet in C_CF, and every lane whose flight ends in the step
 // exports) x SVM (the subvolume and temperature mode: slice/nearest,
 // slice/linear, centre/nearest), so each path pays only for its own
 // registers. PRECAST is its own instantiation because the in-kernel-diffuse
 // one reads C_TCOLL < -1.5 as "already flagged" and the two encodings
-// collide. The centre table [x, y, z, |c|^2] (centre mode), the facet
+// collide. The full mirror keeps six more floats than the slim one live
+// across the rounds (the partner's omega, velocity, intercept and slope);
+// it runs on the box and triangle casts (21 instantiations in all). The
+// centre table [x, y, z, |c|^2] (centre mode), the facet
 // table, the triangle table, T_sv and the lifetime grid are staged in
 // shared memory per block; the diffuse tables (diff2, omega_vel, |k|^2, the
 // partner bitmask, the lifetime table) are gathered from global memory
@@ -60,6 +66,10 @@ namespace {
 constexpr int C_OMEGA = 6, C_TAU = 7, C_DEV = 8, C_MODE = 9, C_CF = 10,
               C_TCOLL = 11, C_ONF = 12, C_REM = 13, C_ALIVE = 14, C_SV = 15,
               R_MMODE = 16, R_TAUB = 17;
+// the full mirror cache's rows, 16 + X_* (sim/state.py)
+constexpr int R_XOMEGA = 17, R_XVEL = 18, R_XTAU = 21, R_XTAUB = 22, R_XMTAUB = 23;
+// pool layouts (sim/state.py LAYOUT_ROWS): 16, 18 and 24 rows
+constexpr int L_PLAIN = 0, L_SLIM = 1, L_FULL = 2;
 // facet-table columns (ops/megastep.py FT_*)
 constexpr int FT_KIND = 0, FT_RES = 1, FT_PAIR = 2, FT_VALUE = 3, FT_NORMAL = 4,
               FT_SHIFT = 7, FT_AXIS = 10, FT_SIGN = 11, FT_PLANE = 12, FT_ETA = 13,
@@ -106,6 +116,19 @@ __device__ __forceinline__ float occ_delta(float T, float omega, const MegaCfg& 
   const float nT = okT ? 1.0f / eT : 0.0f;
   const float nR = okR ? 1.0f / eR : 0.0f;
   return (okT && okR) ? (eR - eT) / (eT * eR) : nT - nR;
+}
+
+// n0(T_ref, a) - n0(T_ref, b) (ops/kmath.py occupation_delta_omega_k)
+__device__ __forceinline__ float occ_delta_omega(float a, float b, const MegaCfg& c) {
+  const bool okA = a > 0.0f;
+  const bool okB = b > 0.0f;
+  const float xA = clamp_max(okA ? a * c.x_ref : 1.0f, X_MAX);
+  const float xB = clamp_max(okB ? b * c.x_ref : 1.0f, X_MAX);
+  const float eA = expm1f(xA);
+  const float eB = expm1f(xB);
+  const float nA = okA ? 1.0f / eA : 0.0f;
+  const float nB = okB ? 1.0f / eB : 0.0f;
+  return (okA && okB) ? (eB - eA) / (eA * eB) : nA - nB;
 }
 
 // the subvolume of position p: slice index arithmetic, or the first centre
@@ -235,7 +258,7 @@ __device__ __forceinline__ float e_bin(float omega, float dev, float T, const Me
 }
 
 // blk: per-block counts [pending | alive | diffused | flagged], nb each
-template <bool TRI, bool SLIM, bool PRECAST, int SVM>
+template <bool TRI, int LAY, bool PRECAST, int SVM>
 __global__ void __launch_bounds__(NK_BLOCK)
 mega_lanes(const MegaCfg c, float* __restrict__ pool, const float* __restrict__ T_sv,
            uint8_t* __restrict__ pend_flag, int* __restrict__ blk,
@@ -257,7 +280,10 @@ mega_lanes(const MegaCfg c, float* __restrict__ pool, const float* __restrict__ 
   const int N = c.n;
   const int nb = gridDim.x;
   const int i = blockIdx.x * NK_BLOCK + threadIdx.x;
-  const bool dkern = !SLIM && !PRECAST && c.n_modes > 0;  // the diffuse tables are present
+  constexpr bool SLIM = LAY == L_SLIM;
+  constexpr bool FULL = LAY == L_FULL;
+  constexpr bool SLOPE = SLIM || FULL;  // slope-form lifetimes
+  const bool dkern = LAY == L_PLAIN && !PRECAST && c.n_modes > 0;  // the diffuse tables are present
   bool alive = false, pend = false, sflag = false;
   int n_diff = 0;
   int seg_bin = -1, seg_led = -1;
@@ -279,9 +305,17 @@ mega_lanes(const MegaCfg c, float* __restrict__ pool, const float* __restrict__ 
     alive = row(C_ALIVE) > 0.5f;
     int m_mode = 0;
     float tau_b = 0.0f;
-    if (SLIM) {
+    float m_omega = 0.0f, m_tau = 0.0f, m_tau_b = 0.0f;
+    float m_v[3] = {0.f, 0.f, 0.f};
+    if (SLOPE) {
       m_mode = __float_as_int(row(R_MMODE));
-      tau_b = row(R_TAUB);
+      tau_b = row(SLIM ? R_TAUB : R_XTAUB);
+    }
+    if (FULL) {
+      m_omega = row(R_XOMEGA);
+      for (int k = 0; k < 3; ++k) m_v[k] = row(R_XVEL + k);
+      m_tau = row(R_XTAU);
+      m_tau_b = row(R_XMTAUB);
     }
     // a lane that won its specular draw in an earlier step but was frozen
     // by the export clamp re-enters flagged, already decided
@@ -296,7 +330,7 @@ mega_lanes(const MegaCfg c, float* __restrict__ pool, const float* __restrict__ 
     const float T_p = T_at<SVM>(p, sv, c, s_T);
     const float g = occ_delta(T_p, omega, c);
     float tau_ev = tau;
-    if (SLIM) {  // slope-form lifetime
+    if (SLOPE) {  // slope-form lifetime
       const float T_c = T_p < c.tau_tmin ? c.tau_tmin : (T_p > c.tau_tmax ? c.tau_tmax : T_p);
       tau_ev = tau + tau_b * T_c;
     }
@@ -362,6 +396,32 @@ mega_lanes(const MegaCfg c, float* __restrict__ pool, const float* __restrict__ 
             onf = cf;
             mv = true;
           }
+        } else if (FULL) {
+          if (m_mode >= 0) {
+            // the full mirror swap: the occupation re-referenced to the
+            // partner's frequency, then mode, omega, velocity, intercept
+            // and slope trade places with the cache
+            dev = dev + occ_delta_omega(omega, m_omega, c);
+            float t = omega;
+            omega = m_omega;
+            m_omega = t;
+            t = tau;
+            tau = m_tau;
+            m_tau = t;
+            t = tau_b;
+            tau_b = m_tau_b;
+            m_tau_b = t;
+            for (int k = 0; k < 3; ++k) {
+              t = v[k];
+              v[k] = m_v[k];
+              m_v[k] = t;
+            }
+            const int tm = mode;
+            mode = m_mode;
+            m_mode = tm;
+            onf = cf;
+            mv = true;
+          }
         } else if (dkern && !sflag) {
           // the Bernoulli against the Ziman specularity, zero without a
           // specular partner at this wall's table row
@@ -419,7 +479,7 @@ mega_lanes(const MegaCfg c, float* __restrict__ pool, const float* __restrict__ 
       row(k) = p[k];
       row(3 + k) = v[k];
     }
-    if (!SLIM) {  // a diffuse re-emission changes the mode's properties
+    if (!SLIM) {  // a diffuse re-emission or a full swap changes the mode's properties
       row(C_OMEGA) = omega;
       row(C_TAU) = tau;
     }
@@ -431,7 +491,14 @@ mega_lanes(const MegaCfg c, float* __restrict__ pool, const float* __restrict__ 
     row(C_REM) = rem;
     row(C_ALIVE) = alive ? 1.0f : 0.0f;
     row(C_SV) = __int_as_float(sv2);
-    if (SLIM) row(R_MMODE) = __int_as_float(m_mode);
+    if (SLOPE) row(R_MMODE) = __int_as_float(m_mode);
+    if (FULL) {
+      row(R_XOMEGA) = m_omega;
+      for (int k = 0; k < 3; ++k) row(R_XVEL + k) = m_v[k];
+      row(R_XTAU) = m_tau;
+      row(R_XTAUB) = tau_b;
+      row(R_XMTAUB) = m_tau_b;
+    }
     pend_flag[i] = pend ? 1 : 0;
     if (alive && !pend) {
       const float e = e_bin(omega, dev, s_T[sv2], c);
@@ -521,12 +588,23 @@ sum_counts(const int* __restrict__ a, int nb, int* __restrict__ out) {
   if (threadIdx.x == 0) out[blockIdx.x == 0 ? 1 : blockIdx.x + 2] = (int)sh[0];
 }
 
-template <bool TRI, bool SLIM, bool PRECAST, int SVM>
+template <bool TRI, int LAY, bool PRECAST, int SVM>
 void launch_lanes(const MegaCfg& c, int nb, size_t smem, cudaStream_t s, float* pool,
                   const float* T, uint8_t* flag, int* blk, float* part_bins,
                   float* part_led) {
-  mega_lanes<TRI, SLIM, PRECAST, SVM><<<nb, NK_BLOCK, smem, s>>>(c, pool, T, flag, blk,
-                                                                 part_bins, part_led);
+  mega_lanes<TRI, LAY, PRECAST, SVM><<<nb, NK_BLOCK, smem, s>>>(c, pool, T, flag, blk,
+                                                                part_bins, part_led);
+}
+
+template <bool TRI, int SVM>
+void launch_layout(int lay, const MegaCfg& c, int nb, size_t smem, cudaStream_t s, float* pool,
+                   const float* T, uint8_t* flag, int* blk, float* part_bins, float* part_led) {
+  if (lay == L_SLIM)
+    launch_lanes<TRI, L_SLIM, false, SVM>(c, nb, smem, s, pool, T, flag, blk, part_bins, part_led);
+  else if (lay == L_FULL)
+    launch_lanes<TRI, L_FULL, false, SVM>(c, nb, smem, s, pool, T, flag, blk, part_bins, part_led);
+  else
+    launch_lanes<TRI, L_PLAIN, false, SVM>(c, nb, smem, s, pool, T, flag, blk, part_bins, part_led);
 }
 
 // the instantiations a gate can reach: every cast/layout branch (the
@@ -535,17 +613,15 @@ template <int SVM>
 int dispatch_lanes(const MegaCfg& c, int nb, size_t smem, cudaStream_t s, float* pool,
                    const float* T, uint8_t* flag, int* blk, float* part_bins,
                    float* part_led) {
-  const bool slim = c.n_rows == 18;
+  const int lay = c.n_rows == 18 ? L_SLIM : (c.n_rows == 24 ? L_FULL : L_PLAIN);
   if (c.precast) {  // the plain pool only; no facet or triangle table
-    if (slim || c.n_facets != 0 || c.n_tris != 0 || c.rounds != 0)
+    if (lay != L_PLAIN || c.n_facets != 0 || c.n_tris != 0 || c.rounds != 0)
       return static_cast<int>(cudaErrorInvalidValue);
-    launch_lanes<false, false, true, SVM>(c, nb, smem, s, pool, T, flag, blk, part_bins, part_led);
+    launch_lanes<false, L_PLAIN, true, SVM>(c, nb, smem, s, pool, T, flag, blk, part_bins, part_led);
   } else if (c.tri) {
-    if (slim) launch_lanes<true, true, false, SVM>(c, nb, smem, s, pool, T, flag, blk, part_bins, part_led);
-    else launch_lanes<true, false, false, SVM>(c, nb, smem, s, pool, T, flag, blk, part_bins, part_led);
+    launch_layout<true, SVM>(lay, c, nb, smem, s, pool, T, flag, blk, part_bins, part_led);
   } else {
-    if (slim) launch_lanes<false, true, false, SVM>(c, nb, smem, s, pool, T, flag, blk, part_bins, part_led);
-    else launch_lanes<false, false, false, SVM>(c, nb, smem, s, pool, T, flag, blk, part_bins, part_led);
+    launch_layout<false, SVM>(lay, c, nb, smem, s, pool, T, flag, blk, part_bins, part_led);
   }
   return 0;
 }
@@ -561,7 +637,7 @@ extern "C" int nk_megastep(const void* cfg, void* pool, const void* T_sv, void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const MegaCfg c = *static_cast<const MegaCfg*>(cfg);
   const int nb = (c.n + NK_BLOCK - 1) / NK_BLOCK;
-  if (nb == 0 || c.sv > MAX_SV || (c.n_rows != 16 && c.n_rows != 18) ||
+  if (nb == 0 || c.sv > MAX_SV || (c.n_rows != 16 && c.n_rows != 18 && c.n_rows != 24) ||
       (c.sv_mode == SV_CENTER && (c.sv > MAX_CEN || c.centers == nullptr)) ||
       (c.sv_mode == SV_LINEAR && c.sv < 2))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -30,5 +30,21 @@ def occupation_delta_T_k(T: torch.Tensor, T_ref: float, omega: torch.Tensor):
     return torch.where(both, (eR - eT) / (eT * eR), nT - nR)
 
 
+def occupation_delta_omega_k(T_ref: float, om_a: torch.Tensor, om_b: torch.Tensor):
+    """n0(T_ref, om_a) - n0(T_ref, om_b), the kernel's operation order: the
+    occupation re-reference of a specular swap to a partner mode of
+    another frequency (nanokappa_tpu/ops/kmath.py:43)."""
+    okA = om_a > 0
+    okB = om_b > 0
+    c = HBAR / (T_ref * KB)
+    xA = torch.clamp(torch.where(okA, om_a * c, 1.0), max=_X_MAX)
+    xB = torch.clamp(torch.where(okB, om_b * c, 1.0), max=_X_MAX)
+    eA = torch.expm1(xA)
+    eB = torch.expm1(xB)
+    nA = torch.where(okA, 1.0 / eA, 0.0)
+    nB = torch.where(okB, 1.0 / eB, 0.0)
+    return torch.where(okA & okB, (eB - eA) / (eA * eB), nA - nB)
+
+
 def signk(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0.0, 1.0, -1.0)

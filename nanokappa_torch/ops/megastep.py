@@ -1,10 +1,15 @@
 """Kernel A — the drift megastep: one pass over the particle pool.
 
 Replaces the Pallas kernel `drift_megastep` / `_kernel` of
-nanokappa_tpu/ops/megastep.py (:1067 / :298) on two of its paths, told
-apart by the pool's layout tag (sim/state.py):
+nanokappa_tpu/ops/megastep.py (:1067 / :298) on its paths, told apart by
+the pool's layout tag (sim/state.py):
   * "slim" (18 rows, the film): eta = 0 rough walls resolve in-kernel as
     the slim-mirror swap;
+  * "full" (24 rows, e.g. the film under the k model): eta = 0 rough walls
+    resolve in-kernel as the full mirror swap (:414-428, :689-707) — mode,
+    omega, velocity and both slope-form lifetime pairs trade places with
+    the cached partner, and the occupation is re-referenced to the
+    partner's frequency;
   * "plain" (16 rows, e.g. the nanowire): rough eta > 0 walls diffuse
     in-kernel — the JAX kernel's "dkern" branch (:382-402, :709-845,
     :883-888) — with the draws made here rather than read from a
@@ -22,15 +27,19 @@ real facet in C_CF, and every lane whose flight ends in the step exports.
 Per lane, in order:
   1. deferred RTA (the previous step's scattering) at the particle
      temperature, with the slope-form lifetime tau = a + b*T_clamped on
-     "slim", the cached lifetime on "plain"; lanes injected this step
-     (C_CF == STALE, or C_TCOLL < -0.5 with kernel_cast off) skip it,
+     "slim" and "full", the cached lifetime on "plain"; lanes injected
+     this step (C_CF == STALE, or C_TCOLL < -0.5 with kernel_cast off)
+     skip it,
   2. the ray cast for stale lanes (kernel_cast off: the pre-cast flight
      time decoded, t = -t_enc - 1),
   3. drift by min(t_coll, remaining),
   4. up to two rounds of in-kernel events: reservoir absorption into a
      per-reservoir ledger [e, e*v/(v.n) xyz, count], periodic translation,
      and at a rough wall either the slim-mirror swap ("slim": flip one
-     velocity component, swap mode <-> partner mode) or ("plain") a
+     velocity component, swap mode <-> partner mode), the full mirror swap
+     ("full": dev += n0(T_ref, omega) - n0(T_ref, omega_partner), then
+     mode, omega, velocity, intercept and slope swap with the cache; a
+     lane without a partner stays pending and exports) or ("plain") a
      Bernoulli against the Ziman specularity p = exp(-4 eta^2 cos^2 |k|^2),
      zero for a mode without a specular partner at that wall row; a
      diffuse lane takes a new mode drawn by Walker alias from the wall
@@ -56,7 +65,7 @@ the same numbers. The JAX kernel's presample pool (sim/diffuse_pool.py), its
 gather per lane; the card can, and the tables fit in its L2.
 
 CUDA design (csrc/megastep.cu): one thread per lane over the SoA pool,
-updated in place; templates on box/triangle cast, slim/plain layout, the
+updated in place; templates on box/triangle cast, plain/slim/full layout, the
 cast-off branch and the subvolume/temperature mode (SV_SLICE, SV_LINEAR,
 SV_CENTER). The centre table [x, y, z, |c|^2] rides first in shared memory
 in the centre mode; the nearest-centre loop runs twice a lane (before and
@@ -72,7 +81,8 @@ second launch adds the partials in block order. Export: per-block pending
 counts, kernel C's scan, then each pending lane below `ecap` copies its rows
 to its global rank. What bounds it on the card: bytes — the pool is read
 and written once, 2 x C x 4 bytes per lane (C = 18 slim, 16 plain; ~184 MB
-and ~164 MB at the 1.28e6-lane pool, 55 and 49 us at 3.35 TB/s); the
+and ~164 MB at the 1.28e6-lane pool, 55 and 49 us at 3.35 TB/s; C = 24
+full, ~245 MB, 73 us); the
 per-lane arithmetic (a 32-triangle cast is ~1.3 kflop) stays far below the
 card's rate. The TPU-only mechanisms (the (C, NR, L) layout, 128-aligned
 segments, the per-tile w_exp clamp, one-hot MXU sums, the presample pool)
@@ -89,11 +99,12 @@ import torch
 
 from nanokappa_torch.constants import HBAR, KB
 from nanokappa_torch.geometry.domain import BC
-from nanokappa_torch.ops.kmath import occupation_delta_T_k, signk
+from nanokappa_torch.ops.kmath import occupation_delta_T_k, occupation_delta_omega_k, signk
 from nanokappa_torch.sim.binning import interp_T_linear, linear_axis, nearest_center
 from nanokappa_torch.sim.state import (
     C_ALIVE, C_CF, C_DEV, C_MODE, C_OMEGA, C_ONF, C_REM, C_TAU, C_TCOLL,
-    LAYOUT_ROWS, R_MMODE, R_TAUB, STALE, as_f32, as_i32,
+    LAYOUT_ROWS, R_MMODE, R_XMTAUB, R_XOMEGA, R_XTAU, R_XVEL, STALE, TAUB_ROW,
+    as_f32, as_i32,
 )
 
 launches = 0  # kernel launches (the CUDA path only)
@@ -177,7 +188,7 @@ class _CCfg(ctypes.Structure):
 class MegaConfig:
     """Static configuration and tables of the drift kernel for one run."""
 
-    layout: str  # "slim" | "plain"
+    layout: str  # "slim" | "full" | "plain"
     sv: int
     sv_mode: int  # SV_SLICE | SV_LINEAR | SV_CENTER
     slice_axis: int
@@ -185,7 +196,7 @@ class MegaConfig:
     inv_len: float
     c0: float  # linear: the first slice centre on the slice axis
     dc: float  # linear: the slice centres' spacing
-    flip_axis: int  # the slim mirror's wall axis (-1 on "plain")
+    flip_axis: int  # the slim mirror's wall axis (-1 on the other layouts)
     dt: float
     t_ref: float
     tau_tmin: float
@@ -284,13 +295,14 @@ def partner_bitmask(btab) -> np.ndarray:
 
 def mega_config(
     geo, mat, btab, params, ecap: int, flip_axis: int | None = None,
-    kernel_cast: bool | None = None,
+    kernel_cast: bool | None = None, layout: str | None = None,
 ) -> MegaConfig:
-    """The drift kernel's tables for one geometry and run (built once):
-    the "slim" layout when `flip_axis` (the slim gate's wall axis) is
-    given, else "plain" — with the diffuse tables when there are rough
-    walls and the kernel casts, with no facet or triangle table when it
-    cannot (kernel_cast off). `kernel_cast` defaults to what the geometry
+    """The drift kernel's tables for one geometry and run (built once) on
+    the pool `layout` (sim/fused.py pool_layout): by default "slim" when
+    `flip_axis` (the slim gate's wall axis) is given, else "plain" — with
+    the diffuse tables when there are rough walls and the kernel casts,
+    with no facet or triangle table when it cannot (kernel_cast off); the
+    "full" mirror needs the kernel's cast. `kernel_cast` defaults to what the geometry
     allows (sim/fused.py kernel_cast_ok); False forces the cast-off branch.
     The subvolume/temperature mode follows the geometry's subvolume type
     and params.temp_interp (linear on slices only, sim/fused.py
@@ -300,9 +312,15 @@ def mega_config(
     from nanokappa_torch.sim.fused import kernel_cast_ok
 
     d = geo.device
-    slim = flip_axis is not None
+    if layout is None:
+        layout = "plain" if flip_axis is None else "slim"
+    if (layout == "slim") != (flip_axis is not None):
+        raise ValueError("the slim layout, and only it, takes the slim gate's flip axis")
+    mirror = layout != "plain"
     kcast = kernel_cast_ok(geo) if kernel_cast is None else bool(kernel_cast)
-    dkern = kcast and not slim and btab is not None and int(btab.n_rough) > 0
+    if mirror and not kcast:
+        raise ValueError("the mirror layouts need kernel A's in-kernel cast")
+    dkern = kcast and not mirror and btab is not None and int(btab.n_rough) > 0
     bounds = host(geo.bounds)
     ax = int(geo.slice_axis)
     SV = int(geo.n_subvols)
@@ -325,7 +343,7 @@ def mega_config(
         diff2 = omega_vel = k2 = tau = tau_Tt = empty
         cmask = torch.zeros(0, dtype=torch.int32, device=d)
     return MegaConfig(
-        layout="slim" if slim else "plain",
+        layout=layout,
         sv=SV,
         sv_mode=sv_mode,
         slice_axis=ax,
@@ -333,10 +351,10 @@ def mega_config(
         inv_len=float(SV / (bounds[1, ax] - bounds[0, ax])),
         c0=c0,
         dc=dc,
-        flip_axis=int(flip_axis) if slim else -1,
+        flip_axis=int(flip_axis) if flip_axis is not None else -1,
         dt=float(params.dt),
         t_ref=float(params.t_reference),
-        # the slope-form lifetime's clamp (slim only)
+        # the slope-form lifetime's clamp (slim and full)
         tau_tmin=float(tau_T[0]),
         tau_tmax=float(tau_T[-1]),
         ecap=int(ecap),
@@ -344,7 +362,7 @@ def mega_config(
         # a second round resolves 2-bounce chains in-kernel on the mirror
         # and in-kernel-diffuse paths; none runs without the in-kernel cast
         # (an event's resolution needs a re-cast) (nanokappa_tpu/ops/megastep.py:1185)
-        rounds=(2 if (slim or dkern) else 1) if kcast else 0,
+        rounds=(2 if (mirror or dkern) else 1) if kcast else 0,
         dkern=dkern,
         box=box_tables(geo) if (kcast and geo.is_box) else None,
         facets=torch.as_tensor(
@@ -426,6 +444,8 @@ def drift_megastep_plain(pool, T_sv, rta_on, cfg: MegaConfig, seed: int = 0):
     """The plain torch version; same contract as `drift_megastep`."""
     dt, t_ref = cfg.dt, cfg.t_ref
     slim = cfg.layout == "slim"
+    full = cfg.layout == "full"
+    slope = cfg.layout in TAUB_ROW  # slope-form lifetimes
     dev_ = pool.device
     N = pool.shape[1]
     F = cfg.facets.shape[0]
@@ -440,9 +460,14 @@ def drift_megastep_plain(pool, T_sv, rta_on, cfg: MegaConfig, seed: int = 0):
     onf = as_i32(pool[C_ONF])
     alive = pool[C_ALIVE] > 0.5
     zf = torch.zeros_like(omega)
-    if slim:
+    if slope:
         m_mode = as_i32(pool[R_MMODE])
-        tau_b = pool[R_TAUB]
+        tau_b = pool[TAUB_ROW[cfg.layout]]
+    if full:
+        m_omega = pool[R_XOMEGA]
+        m_v = [pool[R_XVEL.start + k] for k in range(3)]
+        m_tau = pool[R_XTAU]
+        m_tau_b = pool[R_XMTAUB]
     # lanes that won their specular draw in an earlier step but were frozen
     # by the export clamp re-enter flagged and already decided
     sflag = alive & (t_coll < -1.5) if cfg.dkern else torch.zeros_like(alive)
@@ -454,7 +479,7 @@ def drift_megastep_plain(pool, T_sv, rta_on, cfg: MegaConfig, seed: int = 0):
     # ---- 1. deferred RTA ------------------------------------------------------
     T_p = _T_of(cfg, T_sv, p, sv)
     g = occupation_delta_T_k(T_p, t_ref, omega)
-    tau_ev = tau + tau_b * torch.clamp(T_p, cfg.tau_tmin, cfg.tau_tmax) if slim else tau
+    tau_ev = tau + tau_b * torch.clamp(T_p, cfg.tau_tmin, cfg.tau_tmax) if slope else tau
     decay = torch.where(
         tau_ev > 0, torch.exp(_div(-dt, torch.clamp(tau_ev, min=1e-12))), 0.0
     )
@@ -514,6 +539,23 @@ def drift_megastep_plain(pool, T_sv, rta_on, cfg: MegaConfig, seed: int = 0):
             fa = cfg.flip_axis
             v[fa] = torch.where(rfl, -v[fa], v[fa])
             mode, m_mode = torch.where(rfl, m_mode, mode), torch.where(rfl, mode, m_mode)
+            onf = torch.where(rfl, cf, onf)
+        elif full:
+            # the full mirror swap: the occupation is conserved while the
+            # reference occupation moves to the partner's frequency, then
+            # mode, omega, velocity, intercept and slope trade with the cache
+            rfl = rough & (m_mode >= 0)
+            dev = torch.where(rfl, dev + occupation_delta_omega_k(t_ref, omega, m_omega), dev)
+
+            def sw(a, b):
+                return torch.where(rfl, b, a), torch.where(rfl, a, b)
+
+            omega, m_omega = sw(omega, m_omega)
+            tau, m_tau = sw(tau, m_tau)
+            tau_b, m_tau_b = sw(tau_b, m_tau_b)
+            mode, m_mode = sw(mode, m_mode)
+            for k in range(3):
+                v[k], m_v[k] = sw(v[k], m_v[k])
             onf = torch.where(rfl, cf, onf)
         elif cfg.dkern:
             undecided = rough & ~sflag
@@ -593,6 +635,8 @@ def drift_megastep_plain(pool, T_sv, rta_on, cfg: MegaConfig, seed: int = 0):
     ]
     if slim:
         cols += [as_f32(m_mode), tau_b]
+    if full:
+        cols += [as_f32(m_mode), m_omega, *m_v, m_tau, tau_b, m_tau_b]
     new = torch.stack(cols)
     rows = torch.zeros((pool.shape[0], cfg.ecap), dtype=torch.float32, device=dev_)
     idx = torch.full((cfg.ecap,), N, dtype=torch.int32, device=dev_)
@@ -612,8 +656,8 @@ def drift_megastep(
     pool: torch.Tensor, T_sv: torch.Tensor, rta_on: bool, cfg: MegaConfig, seed: int = 0
 ):
     """One drift pass over the (C, N) pool of the config's layout (C = 18
-    "slim", 16 "plain"), updated IN PLACE; `seed` is the step's seed of
-    the in-kernel draws.
+    "slim", 24 "full", 16 "plain"), updated IN PLACE; `seed` is the step's
+    seed of the in-kernel draws.
 
     Returns (rows (C, ecap) f32 — the exported lanes' rows in ascending
     lane order, valid in [0, kept), zero beyond, C_ALIVE reading 0;

@@ -5,10 +5,14 @@ Torch twin of nanokappa_tpu/sim/fused.py `make_step_v2` (:576) on slice
 subvolumes (nearest or linear temperatures) and grid/voronoi subvolumes of
 up to MAX_CENTERS centres (nearest temperatures), `pooled` or `constant`
 reservoirs, the velocity or the k scattering model, on three paths:
-  * the film's slim specular-mirror path: an axis-aligned box whose rough
-    walls are eta = 0 (fully specular) with the exact crystal mirror on one
-    axis as correspondence (the slim gate, sim/boundary_tables.py
-    slim_mirror_axis); the pool is the "slim" 18-row layout,
+  * the specular-mirror path of eta = 0 (fully specular) rough walls that
+    share one correspondence table: on the "slim" 18-row layout where the
+    partner is the exact crystal mirror on one axis (the slim gate,
+    sim/boundary_tables.py slim_mirror_axis), e.g. the film under the
+    velocity model; on the "full" 24-row layout everywhere else on this
+    path, e.g. the film under the k model, whose degenerate-branch split
+    is drawn whenever a lane's mirror cache is filled (initialisation,
+    injection, the narrow machinery's refill),
   * the mirror-off path, e.g. the nanowire: a box or a mesh of at most
     TRI_KERNEL_MAX triangles (kernel A casts against the triangles) with
     rough eta > 0 walls, whose diffuse reflections kernel A draws itself
@@ -68,7 +72,8 @@ from nanokappa_torch.sim.scatter import (
 )
 from nanokappa_torch.sim.state import (
     C_ALIVE, C_CF, C_DEV, C_MODE, C_OMEGA, C_ONF, C_POS, C_SV, C_TAU, C_TCOLL,
-    C_VEL, R_MMODE, R_TAUB, STALE, SimParams, SimState, as_f32, as_i32,
+    C_VEL, R_MMODE, R_TAUB, R_XMTAUB, R_XTAU, R_XTAUB, STALE, TAUB_ROW,
+    SimParams, SimState, as_f32, as_i32,
 )
 
 
@@ -139,21 +144,35 @@ def dkern_active(geo, btab, params: SimParams, mat) -> bool:
     )
 
 
+def kmodel_degen(btab, params: SimParams) -> bool:
+    """The k model with equal-frequency partner branches: its
+    degenerate-branch split is drawn at cache fill, so a lane's cached
+    partner is not always the exact crystal mirror
+    (nanokappa_tpu/sim/fused.py:611-620)."""
+    return params.scat_model in K_MODELS and bool((host(btab.degen_partner) >= 0).any())
+
+
 def pool_layout(geo, btab, params: SimParams, mat) -> str:
-    """The pool layout the step runs on (sim/state.py): "slim" on the
-    specular-mirror path, "plain" everywhere else."""
-    return "slim" if mirror_eligible(geo, btab, params, mat) else "plain"
+    """The pool layout the step runs on (sim/state.py): on the
+    specular-mirror path "slim" where the partner is the exact crystal
+    mirror (slim_mirror_axis), "full" where it is not or where the k
+    model's split is drawn; "plain" off that path."""
+    if not mirror_eligible(geo, btab, params, mat):
+        return "plain"
+    if kmodel_degen(btab, params) or slim_mirror_axis(geo, btab, mat) is None:
+        return "full"
+    return "slim"
 
 
 def require_slice(geo, btab, params: SimParams, mat) -> None:
     """Raise NotImplementedError, naming the ROADMAP item that ports it, for
-    any configuration outside the ported paths: the film (box, eta = 0
-    walls, slim mirror), the mirror-off path of kernel A (box or mesh of
-    <= TRI_KERNEL_MAX triangles, rough walls diffusing in-kernel) and its
-    kernel_cast-off path (meshes of <= LARGE_TRI_MAX triangles); on slices
-    (<= MAX_SLICES, nearest or linear temperatures) or grid/voronoi
-    centres (<= MAX_CENTERS, nearest temperatures); the velocity model,
-    or the k model off the mirror path."""
+    any configuration outside the ported paths: the mirror path (eta = 0
+    walls, slim or full mirror cache), the mirror-off path of kernel A (box
+    or mesh of <= TRI_KERNEL_MAX triangles, rough walls diffusing
+    in-kernel) and its kernel_cast-off path (meshes of <= LARGE_TRI_MAX
+    triangles); on slices (<= MAX_SLICES, nearest or linear temperatures)
+    or grid/voronoi centres (<= MAX_CENTERS, nearest temperatures); the
+    velocity or the k model."""
     if params.n_shards != 1:
         raise _todo("particle-axis sharding (multi-GPU)", 12)
     if not geo.is_box and int(geo.tri_origin.shape[0]) > LARGE_TRI_MAX:
@@ -179,11 +198,6 @@ def require_slice(geo, btab, params: SimParams, mat) -> None:
             )
     else:
         raise _todo(f"{geo.subvol_type!r} subvolumes (the v1 step)", 11)
-    if params.scat_model in K_MODELS and mirror_eligible(geo, btab, params, mat):
-        raise _todo(
-            "the k (wavevector) model on the mirror path (the full 24-row mirror "
-            "with its degenerate split drawn at cache fill)", 10,
-        )
     if geo.n_reservoirs > 0 and params.res_gen not in ("pooled", "constant"):
         raise _todo(f"reservoir_gen={params.res_gen!r}", 5)
     if geo.n_reservoirs > 7:
@@ -192,8 +206,6 @@ def require_slice(geo, btab, params: SimParams, mat) -> None:
     if btab is not None and int(btab.n_rows) > CMASK_ROWS and dkern_active(geo, btab, params, mat):
         # the partner bitmask serves in-kernel diffuse reflection only
         raise _todo(f"{btab.n_rows} rough-wall table rows (> {CMASK_ROWS})", 10)
-    if mirror_eligible(geo, btab, params, mat) and slim_mirror_axis(geo, btab, mat) is None:
-        raise _todo("the full 24-row mirror cache", 10)
 
 
 def dkern_facet_tables(geo, btab) -> dict:
@@ -310,6 +322,56 @@ def expand_slim_mirror(pool: torch.Tensor, flip_axis: int) -> torch.Tensor:
     return torch.stack(cols, dim=1)
 
 
+def degen_split(btab, corr: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The k model's degenerate-branch split drawn at cache fill
+    (nanokappa_tpu/sim/fused.py kmodel_degen_split :363): the cached partner
+    swaps to its equal-frequency partner branch where `u` >= 1/2, so the
+    next in-kernel reflection takes the partner with probability 1/2."""
+    dp = btab.degen_partner
+    partner = dp[torch.clamp(corr, 0, dp.shape[0] - 1).long()]
+    return torch.where((corr >= 0) & (partner >= 0) & (u >= 0.5), partner, corr)
+
+
+def mirror_assemble(mat, mode, corr, m_omega, m_vel, sv, T_sv):
+    """(mrows (8, E), a): the full mirror cache rows 16 + X_* of lanes whose
+    partner is `corr` (with its omega and velocity), and the main mode's
+    lifetime intercept a for C_TAU (nanokappa_tpu/sim/fused.py
+    _mirror_assemble :502). Both slope pairs come from slope_pair itself,
+    so full- and slim-path lifetimes agree bit for bit."""
+    M = mat.tau.shape[1]
+    has = corr >= 0
+    a, b = slope_pair(mat, T_sv, sv, mode)
+    a_m, b_m = slope_pair(mat, T_sv, sv, torch.clamp(corr, 0, M - 1))
+    return torch.stack([
+        as_f32(corr),
+        torch.where(has, m_omega, 0.0),
+        *[torch.where(has, m_vel[:, k], 0.0) for k in range(3)],
+        torch.where(has, a_m, 0.0),
+        b,
+        torch.where(has, b_m, 0.0),
+    ]), a
+
+
+def mirror_rows(btab, mat, mtab, rows, T_sv, sv, u=None):
+    """Fresh full mirror cache rows for (possibly mode-changed) particle
+    rows, e.g. the narrow machinery's outputs (nanokappa_tpu/sim/fused.py
+    _mirror_rows :542): the partner from the combined wall table `mtab`
+    ([p, corr, omega, vx, vy, vz, ..] per mode); with uniforms `u` the k
+    model's split is drawn and the effective partner's omega and velocity
+    gathered again. Returns (mrows (8, E), a) as mirror_assemble."""
+    M = mat.tau.shape[1]
+    mode = torch.clamp(as_i32(rows[C_MODE]), 0, M - 1)
+    sc = mtab[mode.long()]
+    corr = as_i32(sc[:, 1])
+    if u is None:
+        m_om, m_v = sc[:, 2], sc[:, 3:6]
+    else:
+        corr = degen_split(btab, corr, u)
+        ov = mat.omega_vel[torch.clamp(corr, 0, M - 1).long()]
+        m_om, m_v = ov[:, 0], ov[:, 1:4]
+    return mirror_assemble(mat, mode, corr, m_om, m_v, sv, T_sv)
+
+
 def _append_window(pool, rows, valid, tail: int) -> bool:
     """Write `rows` (C, w) into pool lanes [tail, tail + w) where `valid`;
     the window's other lanes keep their rows (nanokappa_tpu/sim/fused.py
@@ -339,29 +401,34 @@ def make_step_v2(
     device = geo.device
     layout = pool_layout(geo, btab, params, mat)
     slim = layout == "slim"
+    full = layout == "full"
+    mirror = slim or full
     flip = slim_mirror_axis(geo, btab, mat) if slim else None
+    # the k model's split, drawn again at every cache fill
+    kdegen = full and kmodel_degen(btab, params)
     R = geo.n_reservoirs
     SV = geo.n_subvols
     M = mat.tau.shape[1]
     EVT_CAP = event_window(geo, mat, btab, params)
-    cfg = mega_config(geo, mat, btab, params, EVT_CAP, flip)
+    cfg = mega_config(geo, mat, btab, params, EVT_CAP, flip, layout=layout)
     SV8 = cfg.sv8
     # rounds 2+ of the narrow machinery: the mirror path's buffer is already
     # the deep-chain tail (E/4); off it first bounces dominate, and with
     # in-kernel diffuse the buffer is mostly specular lanes that can chain
     # (nanokappa_tpu/sim/fused.py:971-973)
-    evt2_cap = None if slim else (EVT_CAP // 8 if cfg.dkern else EVT_CAP // 16)
-    if slim:
-        # partner-mode bits of every mode (the slim cache's row 16)
-        corr_bits = np.ascontiguousarray(combined_mirror_rows(btab, mat)[:, 1])
-        mtab1 = torch.as_tensor(corr_bits, device=device)
+    evt2_cap = None if mirror else (EVT_CAP // 8 if cfg.dkern else EVT_CAP // 16)
+    if mirror:
+        # the combined wall table [p, corr, omega, vx, vy, vz, ..] of every mode
+        cmr = np.ascontiguousarray(combined_mirror_rows(btab, mat))
+        mtab = torch.as_tensor(cmr, device=device)
         if R > 0:
-            # injections read their partner mode from the SAME table row
-            # that gives omega/velocity/tau: [omega, vx, vy, vz, tau, corr]
+            # injections read their partner from the SAME table row that
+            # gives omega/velocity/tau: [omega, vx, vy, vz, tau, corr] on
+            # "slim", [.., corr, omega, vx, vy, vz of the partner] on "full"
             ip = host(rtab.inj_props)
+            w = 2 if slim else 6
             ext = np.concatenate(
-                [ip, np.broadcast_to(corr_bits[None, :, None], ip.shape[:2] + (1,))],
-                axis=-1,
+                [ip, np.broadcast_to(cmr[None, :, 1:w], ip.shape[:2] + (w - 1,))], axis=-1,
             )
             rtab = replace(rtab, inj_props=torch.as_tensor(ext, device=device))
     dens = 1.0 / (mat.n_qpoints * mat.volume_unitcell)
@@ -381,12 +448,29 @@ def make_step_v2(
             rows, n_valid, new_counter, dropped, props = sample_injections(
                 state.res_counter, geo, rtab, params, state.gen
             )
-            if slim:
+            if mirror:
                 mode_inj = torch.clamp(as_i32(rows[C_MODE]), 0, M - 1)
                 sv_inj = subvol_id(geo, rows[C_POS].T)
+            if slim:
                 a_inj, b_inj = slope_pair(mat, state.T_sv, sv_inj, mode_inj)
                 rows[C_TAU] = a_inj
                 rows = torch.cat([rows, props[:, 5][None], b_inj[None]])
+            elif full:
+                corr_inj = as_i32(props[:, 5])
+                if kdegen:
+                    # the split drawn at injection, the effective partner's
+                    # omega and velocity gathered again
+                    u = torch.rand(corr_inj.shape[0], generator=state.gen, device=device)
+                    corr_inj = degen_split(btab, corr_inj, u)
+                    ov = mat.omega_vel[torch.clamp(corr_inj, 0, M - 1).long()]
+                    m_om, m_v = ov[:, 0], ov[:, 1:4]
+                else:
+                    m_om, m_v = props[:, 6], props[:, 7:10]
+                mrows, a_inj = mirror_assemble(
+                    mat, mode_inj, corr_inj, m_om, m_v, sv_inj, state.T_sv,
+                )
+                rows[C_TAU] = a_inj
+                rows = torch.cat([rows, mrows])
             if not kcast:
                 # pre-cast at buffer width (kernel A cannot cast here):
                 # freshness rides the sign of C_TCOLL, t_enc = -t/dt - 1 < 0,
@@ -437,7 +521,14 @@ def make_step_v2(
             mode_e = torch.clamp(as_i32(rows_out[C_MODE]), 0, M - 1)
             a_e, b_e = slope_pair(mat, state.T_sv, sv_e, mode_e)
             rows_out[C_TAU] = torch.where(alive_e, a_e, rows_out[C_TAU])
-            rows_out = torch.cat([rows_out, mtab1[mode_e.long()][None], b_e[None]])
+            rows_out = torch.cat([rows_out, mtab[mode_e.long(), 1][None], b_e[None]])
+        elif full:
+            # fresh caches for the (possibly mode-changed) rows, the split
+            # drawn again; the intercepts of the lanes' modes
+            u = torch.rand(EVT_CAP, generator=state.gen, device=device) if kdegen else None
+            mrows_e, a_e = mirror_rows(btab, mat, mtab, rows_out, state.T_sv, sv_e, u)
+            rows_out[C_TAU] = torch.where(alive_e, a_e, rows_out[C_TAU])
+            rows_out = torch.cat([rows_out, mrows_e])
         if _append_window(pool, rows_out, alive_e, tail):
             tail += EVT_CAP
             lost3 = torch.zeros((), dtype=torch.int32, device=device)
@@ -474,7 +565,9 @@ def make_step_v2(
             [lost3 + lost_inj, lost_stuck, lost_def]
         ).to(torch.int32)
         state.frozen = state.frozen + (frozen_k + frozen2).to(torch.int32)
-        state.kernel_events = state.kernel_events + torch.cat([counts[3:5], swaps[None]])
+        state.kernel_events = state.kernel_events + torch.cat(
+            [counts[3:5], swaps[None], counts[2:3]]
+        )
         state.step += 1
         out = StepOutputs(
             T_sv=T_new,
@@ -497,20 +590,31 @@ def make_step_v2(
 
 def refresh_tau_T(state: SimState, geo, mat, params) -> SimState:
     """Refresh the cached lifetimes of the alive lanes at the subvolumes'
-    CURRENT temperatures (nanokappa_tpu/sim/fused.py refresh_tau_T): on the
-    slim layout the slope-form pairs (a, b) of the T-grid bins (the
+    CURRENT temperatures (nanokappa_tpu/sim/fused.py refresh_tau_T :1254):
+    on the slim layout the slope-form pairs (a, b) of the T-grid bins (the
     partner's pair equals the main mode's under the slim gate, so one
-    refresh serves both); on the plain layout the full lifetime at each
-    particle's interpolated temperature
+    refresh serves both); on the full layout the pairs of the main mode
+    and of the cached partner; on the plain layout the full lifetime at
+    each particle's interpolated temperature
     (nanokappa_tpu/sim/step.py refresh_tau :513)."""
     pool = state.pool
     alive = state.alive
     sv = subvol_id(geo, pool[C_POS].T)
-    mode = torch.clamp(state.mode, 0, mat.tau.shape[1] - 1)
+    M = mat.tau.shape[1]
+    mode = torch.clamp(state.mode, 0, M - 1)
     if state.layout == "slim":
         a, b = slope_pair(mat, state.T_sv, sv, mode)
         pool[C_TAU] = torch.where(alive, a, pool[C_TAU])
         pool[R_TAUB] = torch.where(alive, b, pool[R_TAUB])
+    elif state.layout == "full":
+        m_mode = as_i32(pool[R_MMODE])
+        has = alive & (m_mode >= 0)
+        a, b = slope_pair(mat, state.T_sv, sv, mode)
+        a_m, b_m = slope_pair(mat, state.T_sv, sv, torch.clamp(m_mode, 0, M - 1))
+        pool[C_TAU] = torch.where(alive, a, pool[C_TAU])
+        pool[R_XTAU] = torch.where(has, a_m, pool[R_XTAU])
+        pool[R_XTAUB] = torch.where(alive, b, pool[R_XTAUB])
+        pool[R_XMTAUB] = torch.where(has, b_m, pool[R_XMTAUB])
     else:
         if params.temp_interp == "nearest":
             tau = lifetime_by_sv(mat, state.T_sv, sv, mode)
@@ -525,8 +629,9 @@ def make_finalize(geo, mat, params):
     """Apply the PENDING deferred RTA so written particle data matches the
     reference's end-of-step state; returns a finalised copy (the running
     state stays un-finalised — the next drift kernel applies it there).
-    On the slim layout the lifetime is the slope form tau = a + b*T (C_TAU
-    holds a, row 17 holds b); on the plain layout C_TAU is the lifetime."""
+    On the slim and full layouts the lifetime is the slope form
+    tau = a + b*T (C_TAU holds a, TAUB_ROW[layout] holds b); on the plain
+    layout C_TAU is the lifetime."""
     tau_T = host(mat.tau_T)
     t_lo, t_hi = float(tau_T[0]), float(tau_T[-1])
 
@@ -536,8 +641,8 @@ def make_finalize(geo, mat, params):
         )
         ok = state.alive & (state.coll_facet != STALE) & (state.step > 0)
         tau = state.tau
-        if state.layout == "slim":
-            tau = tau + state.pool[R_TAUB] * torch.clamp(T_p, t_lo, t_hi)
+        if state.layout in TAUB_ROW:
+            tau = tau + state.pool[TAUB_ROW[state.layout]] * torch.clamp(T_p, t_lo, t_hi)
         dev = rta_scatter(
             mat, state.dev, state.mode, state.omega, T_p, ok,
             params.dt, params.t_reference, tau=tau,

@@ -2,13 +2,18 @@
 
 The JAX package carries a packed (N, 16) row matrix plus an (N, 8)
 specular-mirror side pool (nanokappa_tpu/sim/state.py). The port keeps the
-same column indices as pool ROWS, in one of two layouts named by the state's
-`layout` tag:
+same column indices as pool ROWS, in one of three layouts named by the
+state's `layout` tag:
   * "slim" (18 rows), the in-kernel specular-mirror path of eta = 0 walls
     (sim/fused.py mirror_eligible, slim gate): rows 16-17 are the only two
     mirror columns the step reads, row 16 = partner mode id (X_MODE) and
     row 17 = the lifetime slope b (X_TAUB); C_TAU holds the intercept a of
     tau(T) = a + b*T on the particle's temperature-grid bin;
+  * "full" (24 rows), the same mirror path where the partner is not the
+    exact crystal mirror (no slim axis, or the k model's degenerate split
+    drawn at cache fill): rows 16-23 are the whole mirror cache, 16 + X_*
+    (partner mode, omega, velocity, lifetime intercept a_m, the main
+    mode's slope b, the partner's slope b_m); C_TAU holds the intercept a;
   * "plain" (16 rows), every other path, e.g. rough eta > 0 walls with
     in-kernel diffuse reflection: the particle rows only, and C_TAU holds
     the full cached lifetime tau(T_local, mode), refreshed when a subvolume
@@ -29,7 +34,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from nanokappa_torch.geometry.device import DeviceGeometry
+from nanokappa_torch.geometry.device import DeviceGeometry, host
 from nanokappa_torch.geometry.domain import BC, Domain
 from nanokappa_torch.material.tables import Material, bose_einstein
 
@@ -88,7 +93,15 @@ M_COLS = 8
 # the slim-mirror rows of the port's pool ("slim" layout only)
 R_MMODE = 16  # = X_MODE
 R_TAUB = 17  # = X_TAUB
-LAYOUT_ROWS = {"slim": 18, "plain": 16}
+# the full mirror cache's rows ("full" layout): 16 + X_*
+R_XOMEGA = 16 + X_OMEGA
+R_XVEL = slice(16 + X_VEL.start, 16 + X_VEL.stop)
+R_XTAU = 16 + X_TAU
+R_XTAUB = 16 + X_TAUB
+R_XMTAUB = 16 + X_MTAUB
+LAYOUT_ROWS = {"slim": 18, "plain": 16, "full": 24}
+# the row of the main mode's lifetime slope b on the slope-form layouts
+TAUB_ROW = {"slim": R_TAUB, "full": R_XTAUB}
 
 # the JAX package rounds pool capacities to its Pallas tile width
 # (nanokappa_tpu/ops/megastep.py BN); the port keeps the same capacities so
@@ -109,7 +122,7 @@ def as_f32(x: torch.Tensor) -> torch.Tensor:
 @dataclass
 class SimState:
     pool: torch.Tensor  # (LAYOUT_ROWS[layout], N) f32; see the row map above
-    layout: str  # "slim" | "plain", see the module docstring
+    layout: str  # "slim" | "full" | "plain", see the module docstring
     T_sv: torch.Tensor  # (SV,) f32 subvolume temperatures
     Np_sv: torch.Tensor  # (SV,) i32
     T_tau: torch.Tensor  # (SV,) f32 temperatures at the last lifetime refresh
@@ -121,9 +134,10 @@ class SimState:
     res_heat_flux: torch.Tensor  # (R,3) f32 ledger
     lost: torch.Tensor  # (3,) i32 [capacity drops, k_max-stuck, defective]
     frozen: torch.Tensor  # () i32 postponed-but-alive events (cumulative)
-    kernel_events: torch.Tensor  # (3,) i64 kernel A's in-kernel diffuse
-    #   re-emissions and flagged specular exports, and the narrow
-    #   machinery's k-model degenerate-branch swaps (cumulative)
+    kernel_events: torch.Tensor  # (4,) i64 kernel A's in-kernel diffuse
+    #   re-emissions and flagged specular exports, the narrow machinery's
+    #   k-model degenerate-branch swaps, and kernel A's exported rows
+    #   (cumulative)
     gen: torch.Generator = field(repr=False)  # the run's random stream
     step: int = 0
 
@@ -274,11 +288,12 @@ def init_state(
     """The initial pool, built on the host exactly as the JAX package's
     init_state builds it (same NumPy draws in the same order), in the layout
     the step runs (sim/fused.py pool_layout): on "slim" with the mirror
-    partner and slope-form lifetimes, on "plain" with full lifetimes. Then
-    moved to the geometry's device and given its first ray cast. A resumed
-    run passes the particles of a particle_data.txt as positions, modes and
-    occupation."""
-    from nanokappa_torch.sim.boundary_tables import combined_mirror_rows
+    partner and slope-form lifetimes, on "full" with the whole mirror cache
+    (the k model's degenerate split drawn), on "plain" with full lifetimes.
+    Then moved to the geometry's device and given its first ray cast. A
+    resumed run passes the particles of a particle_data.txt as positions,
+    modes and occupation: its cache is filled, and its split drawn, anew."""
+    from nanokappa_torch.sim.boundary_tables import K_MODELS, combined_mirror_rows
     from nanokappa_torch.sim.fused import pool_layout, require_slice
 
     require_slice(geo, btab, params, mat)
@@ -342,12 +357,25 @@ def init_state(
     ti = np.clip(np.searchsorted(mat.tau_T, T_p) - 1, 0, len(mat.tau_T) - 2)
     tau_flat = mat.tau.reshape(len(mat.tau_T), -1)
 
+    if layout != "plain" or (params.scat_model in K_MODELS and int(btab.n_rough) > 0):
+        # the specular partner of each particle's mode; under the k model
+        # the degenerate-branch split is drawn here, at cache fill, whatever
+        # the layout (nanokappa_tpu/sim/state.py:449-461: the same NumPy
+        # draw in the same place, so the later draws line up too)
+        sc = combined_mirror_rows(btab, mat)
+        cm = (
+            np.full(n_p, -1, np.int32) if sc is None
+            else sc[:, 1].view(np.int32)[modes]
+        )
+        if params.scat_model in K_MODELS:
+            part = host(btab.degen_partner)[np.clip(cm, 0, M - 1)]
+            u_sp = rng.random(cm.shape[0])
+            cm = np.where((cm >= 0) & (part >= 0) & (u_sp >= 0.5), part, cm)
     pool = np.zeros((LAYOUT_ROWS[layout], n_cap), dtype=np.float32)
-    if layout == "slim":
-        # slim specular-mirror cache: partner mode + slope-form lifetime
-        # pair (the partner's lifetime bits equal the main mode's under the
-        # slim gate); C_TAU holds the intercept
-        cm = combined_mirror_rows(btab, mat)[:, 1].view(np.int32)[modes]
+    if layout in ("slim", "full"):
+        # the mirror cache with slope-form lifetimes tau(T) = a + b*T on
+        # the particle's T-grid bin: C_TAU holds the intercept a (on "slim"
+        # the partner's lifetime bits equal the main mode's)
         dTb = np.maximum(mat.tau_T[ti + 1] - mat.tau_T[ti], 1e-30)
         ok = mat.tau_T[ti + 1] > mat.tau_T[ti]
         b_main = np.where(
@@ -357,8 +385,21 @@ def init_state(
         m_mode = np.full(n_cap, -1, np.int32)
         m_mode[slots] = cm
         pool[R_MMODE] = m_mode.view(np.float32)
-        pool[R_TAUB] = full(b_main.astype(np.float32), 0.0)
-    else:
+        pool[TAUB_ROW[layout]] = full(b_main.astype(np.float32), 0.0)
+    if layout == "full":
+        has = cm >= 0
+        cmc = np.clip(cm, 0, M - 1)
+        m_omega = mat.omega.reshape(-1)[cmc].astype(np.float32)
+        m_vel = mat.group_vel.reshape(-1, 3)[cmc].astype(np.float32)
+        b_mir = np.where(
+            ok, (tau_flat[ti + 1, cmc] - tau_flat[ti, cmc]) / dTb, 0.0
+        )
+        a_mir = tau_flat[ti, cmc] - b_mir * mat.tau_T[ti]
+        pool[R_XOMEGA] = full(np.where(has, m_omega, 0.0).astype(np.float32), 0.0)
+        pool[R_XVEL] = full(np.where(has[:, None], m_vel, 0.0).astype(np.float32), 0.0).T
+        pool[R_XTAU] = full(np.where(has, a_mir, 0.0).astype(np.float32), 0.0)
+        pool[R_XMTAUB] = full(np.where(has, b_mir, 0.0).astype(np.float32), 0.0)
+    if layout == "plain":
         # the full lifetime at the particle's temperature
         wt = np.clip(
             (T_p - mat.tau_T[ti]) / (mat.tau_T[ti + 1] - mat.tau_T[ti]), 0.0, 1.0
@@ -395,7 +436,7 @@ def init_state(
         res_heat_flux=torch.zeros((R, 3), dtype=torch.float32, device=device),
         lost=torch.zeros(3, dtype=torch.int32, device=device),
         frozen=torch.zeros((), dtype=torch.int32, device=device),
-        kernel_events=torch.zeros(3, dtype=torch.int64, device=device),
+        kernel_events=torch.zeros(4, dtype=torch.int64, device=device),
         gen=make_generator(seed, device),
         step=0,
     )

@@ -17,7 +17,7 @@ import torch
 
 from nanokappa_torch.ops.compact_pool import compact_pool
 from nanokappa_torch.sim.fused import event_window, make_step_v2, refresh_tau_T
-from nanokappa_torch.sim.state import SimParams, SimState
+from nanokappa_torch.sim.state import TAUB_ROW, SimParams, SimState
 
 
 @dataclass
@@ -101,8 +101,9 @@ def make_v2_block_runner(geo, mat, btab, params: SimParams, step, n_inner: int, 
 def maybe_refresh_tau(state: SimState, geo, mat, params) -> SimState:
     """Run the full-pool lifetime refresh only when it is due (one host read
     of the flag; nanokappa_tpu/sim/step.py:471):
-      * slim layout (slope form): tau(T) = a + b*T is exact within a T-grid
-        bin, so when a subvolume temperature CROSSES a bin boundary;
+      * slim and full layouts (slope form): tau(T) = a + b*T is exact
+        within a T-grid bin, so when a subvolume temperature CROSSES a bin
+        boundary;
       * plain layout (cached full lifetimes): when a subvolume temperature
         drifted more than params.tau_dT since the last refresh."""
     nT = mat.tau_T.shape[0]
@@ -110,7 +111,7 @@ def maybe_refresh_tau(state: SimState, geo, mat, params) -> SimState:
     def tbin(T):
         return torch.clamp(torch.searchsorted(mat.tau_T, T) - 1, 0, max(nT - 2, 0))
 
-    if state.layout == "slim":
+    if state.layout in TAUB_ROW:
         due = torch.any(tbin(state.T_sv) != tbin(state.T_tau))
     else:
         due = torch.any((state.T_sv - state.T_tau).abs() > params.tau_dT)

@@ -1,11 +1,12 @@
 """Where the port's step spends its time on the card.
 
-    python scripts/torch_profile_step.py [film|wire|bigmesh|plate]     # default: film
+    python scripts/torch_profile_step.py [film|kfilm0|wire|bigmesh|plate]     # default: film
 
-Builds the film (pooled reservoirs), the nanowire, the large mesh (the
-96-sided cylinder) or the perforated plate (its STL written to a temporary
-folder, Voronoi 8 subvolumes; all three 'constant' reservoirs) exactly as
-chip_smoke.py does, warms up two runs of
+Builds the film (pooled reservoirs), the film under the k model (`kfilm0`:
+the eta = 0 bench film on the full 24-row mirror layout), the nanowire, the
+large mesh (the 96-sided cylinder) or the perforated plate (its STL written
+to a temporary folder, Voronoi 8 subvolumes; all three 'constant'
+reservoirs) exactly as chip_smoke.py does, warms up two runs of
 n_inner = 10 steps, then records one more run with torch.profiler (CPU and
 CUDA activities). Prints the step's wall time, the device's busy share
 (summed kernel time over the wall time of the window), the launches per
@@ -15,6 +16,7 @@ trace to chiprun_out/torch_step_trace_<config>.json. Needs a CUDA card.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 import time
@@ -40,7 +42,8 @@ def main() -> None:
     from nanokappa_torch.sim.step import build_step
 
     config = sys.argv[1] if len(sys.argv) > 1 else "film"
-    configs = {"film": (FILM, "pooled"), "wire": (WIRE, "constant"), "bigmesh": (BIGMESH, "constant")}
+    configs = {"film": (FILM, "pooled"), "kfilm0": (FILM, "pooled"), "wire": (WIRE, "constant"),
+               "bigmesh": (BIGMESH, "constant")}
     if config == "plate":
         import tempfile
 
@@ -52,8 +55,10 @@ def main() -> None:
     domain_kw, res_gen = configs[config]
     device = torch.device("cuda:0")
     mat = synthetic_material(mesh=(MESH, MESH, MESH))
-    dom, geo, btab = build_ctx(mat, domain_kw, device)
+    scat = "k" if config == "kfilm0" else "velocity"
+    dom, geo, btab = build_ctx(mat, domain_kw, device, scat)
     n_p, rtab, params = run_params(mat, dom, PARTICLES, res_gen, device)
+    params = dataclasses.replace(params, scat_model=scat)
     state = init_state(mat, dom, geo, params, n_p, btab, temp_dist="linear", seed=SEED)
     run = build_step(geo, mat.device_tables(device), btab, rtab, params, n_inner=STEPS)
     for _ in range(2):
@@ -71,7 +76,7 @@ def main() -> None:
     )
     launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
     print(card_line())
-    print(f"{config}: run of {STEPS} steps: {wall * 1e3:.3f} ms wall, "
+    print(f"{config} ({state.layout} pool): run of {STEPS} steps: {wall * 1e3:.3f} ms wall, "
           f"{wall / STEPS * 1e3:.3f} ms/step; kernels {dev_us / 1e3:.3f} ms "
           f"= device busy {dev_us / 1e6 / wall:.4f} of the window; "
           f"{launches / STEPS:.1f} cudaLaunchKernel per step")

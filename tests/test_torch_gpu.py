@@ -41,9 +41,12 @@ def _close_rows(a, b, rows):
         assert bool(((x - y).abs()[fin] <= 2e-5 * y.abs()[fin] + 2e-5 * scale).all()), r
 
 
-def _film(device):
+def _film(device, layout="slim"):
     """The 4^3 film (T/T/R/R/P, eta = 0) in the port, its pool compacted,
-    5% of the lanes STALE and a third without a mirror partner."""
+    5% of the lanes STALE and a third without a mirror partner; on the
+    "slim" layout or (the slim gate turned off by the caller) the "full"
+    one, where a sixth of the lanes then cache a partner frequency 1e-3
+    off their own (the swap's occupation term is not zero)."""
     from nanokappa_torch.geometry.device import build_device_geometry
     from nanokappa_torch.geometry.domain import build_domain
     from nanokappa_torch.material import synthetic_material
@@ -68,13 +71,17 @@ def _film(device):
     geo = build_device_geometry(dom, device)
     btab = build_boundary_tables(mat, dom, device=device)
     state = init_state(mat, dom, geo, params, n_p, btab, temp_dist="linear", seed=3)
+    assert state.layout == layout
     pool, _ = compact_pool_plain(state.pool)
     alive = torch.nonzero(pool[14] > 0.5).flatten()
     pool[10, alive[::20]] = torch.tensor(-2, dtype=torch.int32, device=device).view(torch.float32)
     pool[16, alive[1::3]] = torch.tensor(-1, dtype=torch.int32, device=device).view(torch.float32)
+    if layout == "full":
+        pool[17, alive[2::6]] *= 1.001
     cfg = mega_config(
         geo, mat.device_tables(device), btab, params,
-        autosize_evt_cap(geo, mat.device_tables(device), params, True, 4096), flip_axis=2,
+        autosize_evt_cap(geo, mat.device_tables(device), params, True, 4096),
+        flip_axis=2 if layout == "slim" else None, layout=layout,
     )
     return pool, state.T_sv, cfg
 
@@ -199,6 +206,67 @@ def test_cuda_megastep_matches_plain(cuda, rta_on):
     for r in INT_ROWS:
         assert torch.equal(_bits(rk[r, :k]), _bits(rp[r, :k])), r
     _close_rows(rk[:, :k], rp[:, :k], FLOAT_ROWS)
+    for a, b in ((lk, lp), (bk, bp)):
+        a, b = a.double().cpu(), b.double().cpu()
+        scale = b.abs().sum(0, keepdim=True) + b.abs().max()
+        assert bool(((a - b).abs() <= 1e-5 * b.abs() + 1e-5 * scale).all())
+
+
+def _crafted_full(pool16, cfg, seed=4):
+    """The wire's 16-row pool with a crafted 24-row mirror cache: two thirds
+    of the alive lanes cache a random partner mode (its omega and velocity
+    from the config's mode table, an intercept and two slopes from the
+    lane's lifetime), the rest none; the config turned to the full layout."""
+    import dataclasses
+
+    g = torch.Generator(device=pool16.device).manual_seed(seed)
+    N = pool16.shape[1]
+    ov = cfg.omega_vel
+    xm = torch.randint(0, ov.shape[0], (N,), generator=g, device=pool16.device, dtype=torch.int32)
+    has = (torch.rand(N, generator=g, device=pool16.device) < 2 / 3) & (pool16[14] > 0.5)
+    xm = torch.where(has, xm, -1)
+    o = ov[xm.clamp(min=0).long()]
+    tau = pool16[7]
+    rows = torch.stack([
+        xm.view(torch.float32), torch.where(has, o[:, 0], 0.0),
+        *[torch.where(has, o[:, 1 + k], 0.0) for k in range(3)],
+        torch.where(has, 0.5 * tau, 0.0), -1e-3 * tau, torch.where(has, 2e-3 * tau, 0.0),
+    ])
+    return torch.cat([pool16, rows]).contiguous(), dataclasses.replace(cfg, layout="full", dkern=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rta_on", [False, True])
+@pytest.mark.parametrize("cast", ["box", "triangle"])
+def test_cuda_megastep_full_layout_matches_plain(cuda, cast, rta_on, monkeypatch):
+    """Kernel A's full-mirror branch (the 24-row pool): the swap of mode,
+    omega, velocity, intercept and slope with the cache, and the occupation
+    re-referenced to the partner's frequency, on the film's box cast and on
+    the wire's triangle cast."""
+    from nanokappa_torch.ops.megastep import drift_megastep, drift_megastep_plain
+    from nanokappa_torch.sim import fused
+
+    if cast == "box":
+        monkeypatch.setattr(fused, "slim_mirror_axis", lambda *a, **k: None)
+        pool, T_sv, cfg = _film(cuda, "full")
+    else:
+        pool16, T_sv, cfg16 = _plain_pool(cuda, WIRE)
+        pool, cfg = _crafted_full(pool16, cfg16)
+    pk, pp = pool.clone(), pool.clone()
+    rk, ik, ck, lk, bk = drift_megastep(pk, T_sv, rta_on, cfg, seed=7)
+    rp, ip, cp, lp, bp = drift_megastep_plain(pp, T_sv, rta_on, cfg, seed=7)
+    torch.cuda.synchronize()
+    assert torch.equal(ck, cp) and int(cp[2]) > 0, (ck, cp)
+    assert not torch.equal(_bits(pp[9]), _bits(pool[9]))  # lanes swapped
+    float_rows = [r for r in range(24) if r not in INT_ROWS]
+    for r in INT_ROWS:
+        assert torch.equal(_bits(pk[r]), _bits(pp[r])), r
+    _close_rows(pk, pp, float_rows)
+    k = int(cp[2])
+    assert torch.equal(ik, ip)
+    for r in INT_ROWS:
+        assert torch.equal(_bits(rk[r, :k]), _bits(rp[r, :k])), r
+    _close_rows(rk[:, :k], rp[:, :k], float_rows)
     for a, b in ((lk, lp), (bk, bp)):
         a, b = a.double().cpu(), b.double().cpu()
         scale = b.abs().sum(0, keepdim=True) + b.abs().max()

@@ -14,10 +14,11 @@ package.
     narrow machinery that splits them): from one initial state, 4 steps of
     the port's fused step against the JAX v1 step, T_sv within 0.05 K, the
     populations within 30, nothing lost; the port counts swaps.
-  * `require_slice` refuses a k-model configuration on the mirror path
-    (the full 24-row mirror with the split drawn at cache fill, ROADMAP
-    item 10), on tests/test_kmodel_mirror.py's crafted full-coverage
-    involution table, and admits the k film off it.
+  * `require_slice` admits a k-model configuration on the mirror path, on
+    tests/test_kmodel_mirror.py's crafted full-coverage involution table,
+    and `pool_layout` puts it on the full 24-row mirror layout (the split
+    drawn at cache fill; the test keeps the name it had while the port
+    refused this configuration).
 """
 
 import dataclasses
@@ -122,7 +123,7 @@ def test_kmodel_film_matches_jax_v1(kfilm):
 
 
 def test_require_slice_refuses_the_kmodel_mirror(kfilm):
-    from nanokappa_torch.sim.fused import mirror_eligible, require_slice
+    from nanokappa_torch.sim.fused import kmodel_degen, mirror_eligible, pool_layout, require_slice
 
     _, t = kfilm
     M = t.mat.n_modes
@@ -133,5 +134,6 @@ def test_require_slice_refuses_the_kmodel_mirror(kfilm):
     )
     object.__setattr__(crafted, "_host", {**t.btab._host, "specularity": spec, "corr": ident})
     assert mirror_eligible(t.geo, crafted, t.params, t.tabs)
-    with pytest.raises(NotImplementedError, match=r"k \(wavevector\) model on the mirror path.*item 10"):
-        require_slice(t.geo, crafted, t.params, t.tabs)
+    require_slice(t.geo, crafted, t.params, t.tabs)  # admitted: no raise
+    assert kmodel_degen(crafted, t.params)
+    assert pool_layout(t.geo, crafted, t.params, t.tabs) == "full"

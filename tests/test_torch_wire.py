@@ -162,7 +162,11 @@ def test_constant_positions_cover_the_caps_by_area(wire):
     # and grid configuration; it now runs linear T on slices, the k model
     # off the mirror path and up to 256 grid centres, and refuses the rest)
     (dict(params=dict(temp_interp="linear"), geo=dict(subvol_type="grid")), 11),
-    (dict(params=dict(scat_model="k"), mirror=True), 10),
+    # (the id is kept from when the port refused the k model on the mirror
+    # path; it now runs it on the full 24-row mirror layout, and a k-model
+    # mirror configuration raises only for what it still refuses beside it,
+    # here particle shards)
+    (dict(params=dict(scat_model="k", n_shards=2), mirror=True), 12),
     (dict(params=dict(n_shards=2)), 12),
     (dict(geo=dict(subvol_type="grid", n_subvols=257)), 11),
     # (the id is kept from when meshes over 128 triangles raised; they now
@@ -172,8 +176,8 @@ def test_constant_positions_cover_the_caps_by_area(wire):
 ], ids=["fixed_rate", "one_to_one", "linear_interp", "k_model", "two_shards", "grid", "200_triangles"])
 def test_configs_outside_the_ported_paths_raise(wire, change, item, monkeypatch):
     """Every configuration the port does not run yet raises, naming the
-    ROADMAP item that ports it (the k model on a mirror-eligible
-    configuration: the wire's walls are not, so the gate is forced)."""
+    ROADMAP item that ports it (a k-model configuration on the mirror path:
+    the wire's walls are not, so the gate is forced)."""
     import dataclasses
 
     from nanokappa_torch.sim import fused

@@ -213,3 +213,55 @@ def hazard_pool(rng, C, N, p_alive=0.6):
 def assert_bits(a, b, msg=""):
     a, b = np.ascontiguousarray(np_(a)), np.ascontiguousarray(np_(b))
     np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32), err_msg=msg)
+
+
+def craft_kmirror(btab_k, btab_v):
+    """The k model's tables (degenerate partners, diffuse weights) with the
+    velocity model's specular correspondence: on the eta = 0 film walls that
+    is the exact crystal mirror, a full-coverage involution, so the k model
+    runs on the mirror path at a small grid (whose own k map covers too few
+    wall-incident modes for the gate, tests/test_kmodel_mirror.py). Works on
+    either package's BoundaryTables."""
+    crafted = dataclasses.replace(
+        btab_k, specularity=btab_v.specularity, corr=btab_v.corr, spec2=btab_v.spec2,
+    )
+    object.__setattr__(crafted, "_host", {
+        **btab_k._host, "specularity": btab_v._host["specularity"], "corr": btab_v._host["corr"],
+    })
+    return crafted
+
+
+def kmirror_pair(domain_kw=FILM, mesh=(6, 6, 6), temp_dist="linear", subvol_temp=(), seed=3, **kw):
+    """build_pair under the k model on craft_kmirror's tables, the initial
+    states drawn again on them (the mirror cache, the split included)."""
+    from nanokappa_tpu.sim.boundary_tables import build_boundary_tables as j_bt
+    from nanokappa_tpu.sim.state import init_state as j_init
+    from nanokappa_torch.sim.boundary_tables import build_boundary_tables
+    from nanokappa_torch.sim.state import init_state
+
+    j, t = build_pair(domain_kw, mesh=mesh, temp_dist=temp_dist, subvol_temp=subvol_temp, seed=seed, **kw)
+    j.btab = craft_kmirror(j_bt(j.mat, j.dom, "k"), j.btab)
+    t.btab = craft_kmirror(build_boundary_tables(t.mat, t.dom, "k", device="cpu"), t.btab)
+    j.params = dataclasses.replace(j.params, scat_model="k")
+    t.params = dataclasses.replace(t.params, scat_model="k")
+    init = dict(temp_dist=temp_dist, subvol_temp=subvol_temp, seed=seed)
+    j.state = j_init(j.mat, j.dom, j.geo, j.params, j.n_p, btab=j.btab, **init)
+    t.state = init_state(t.mat, t.dom, t.geo, t.params, t.n_p, t.btab, **init)
+    return j, t
+
+
+def split_share(state, btab, mat_tables) -> tuple[int, int]:
+    """(lanes whose cached partner was drawn from a degenerate pair, those
+    that took the partner branch) over the alive lanes of a full-layout
+    pool: the cache holds either the mirror mode or its partner branch."""
+    from nanokappa_torch.sim.boundary_tables import combined_mirror_rows
+
+    pool = np_(state.pool)
+    alive = pool[14] > 0.5
+    mode = pool[9].view(np.int32)[alive]
+    xmode = pool[16].view(np.int32)[alive]
+    corr = combined_mirror_rows(btab, mat_tables)[:, 1].view(np.int32)[mode]
+    dp = np_(btab.degen_partner)
+    partnered = (corr >= 0) & (dp[np.clip(corr, 0, None)] >= 0)
+    took = partnered & (xmode == dp[np.clip(corr, 0, None)])
+    return int(partnered.sum()), int(took.sum())
