@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (`nanokappa_torch`).
 
-    python3 chip_smoke.py     # film, nanowire, k films, plate, large mesh: 1e6 particles, 31^3 table
+    python3 chip_smoke.py     # film, nanowire, k films, plate, large mesh, star: 1e6 particles, 31^3 table
 
 Needs one CUDA card. In order it:
   1. prints the card's name and power limit (nvidia-smi),
@@ -23,7 +23,10 @@ Needs one CUDA card. In order it:
      run), each exactly as bench.py:run_config sizes it — 10^6 particles,
      pool = round_pool_cap(1.25 N), n_inner = n_outer = 10, 2 warm-up and
      3 timed runs — with every kernel's launch counter zeroed just before
-     and read just after, and checks the physics of each,
+     and read just after, and checks the physics of each; between the
+     two, the same film on the v1 step (step_impl="v1": the plain pool,
+     the same seed's particles) for 100 steps, its T_sv held within 0.5 K
+     of the v2 film's after its first 100,
   6. drives the film with linear temperatures and the film re-binned by a
      `grid 16 4 4` domain (256 centres) for 100 steps each, kernel A's
      slice/linear and centre/nearest instantiations on the slim pool, both
@@ -56,7 +59,17 @@ Needs one CUDA card. In order it:
      physics and its result files, then holds kernel E (on the run's
      1,277,952-lane pool, at the injection width and at the event width)
      and the cast-off branch of kernel A against their twins on that
-     context.
+     context (kernel E also at the narrow rounds' width),
+ 10. drives the star (examples/voronoi_star.txt as written: a 6-point
+     star, 12 Voronoi cells, radial temperatures, so the v1 step) through
+     the driver entry for 500 steps at 10^6 particles, with the counters
+     zeroed just before the Simulation is built, and checks its physics,
+     that kernel D ran once a step, and its result files; then holds
+     kernel D (on the star's own event buffer: kernel C's compaction of
+     the lanes the next drift stops at a facet, rows perturbed; and on a
+     sentinel-only buffer) and kernel C at the v1 width (1,277,952 ->
+     79,872) against their twins, timed beside `index_copy_` and
+     `torch.nonzero` + fill.
 Any failed check raises (non-zero exit). The last lines are the card line,
 one JSON line with the kernels' numbers, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -121,6 +134,13 @@ PLATE_STEPS = 300
 K0_STEPS = 500  # the eta = 0 k film through the driver (full 24-row mirror)
 GATE_RTOL = 1e-6  # combined_mirror_rows' involution gate on partner frequencies
 GRID = (16, 4, 4)  # the film re-binned: 256 centres, the nearest-centre loop's cap
+# examples/voronoi_star.txt as written (6-point star, Voronoi 12, radial T,
+# rough eta = 2 A walls, T caps at 305 / 295 K), with 10^6 particles and
+# STAR_STEPS steps: it runs the v1 step (kernels C, D and B)
+STAR_FILE = "examples/voronoi_star.txt"
+STAR_STEPS = 500
+STAR_REASON = "temp_interp='radial' on voronoi subvolumes needs the XLA path"
+V1_FILM_STEPS = 100  # the bench film on the v1 step, against the v2 film
 
 
 def card_line() -> str:
@@ -430,9 +450,9 @@ def main_path(name, mat, dom, geo, btab, rtab, params, n_p, tabs, card):
     """Drive one configuration through init_state -> build_step -> run with
     the launch counters zeroed just before and read just after: 2 warm-up
     and 3 timed runs of 10 x 10 steps. Returns (out, n0, launches, events,
-    state) with events = [kernel A's in-kernel diffuse re-emissions, its
+    state, T_100) with events = [kernel A's in-kernel diffuse re-emissions, its
     flagged specular exports, the narrow machinery's k-model swaps] over
-    the 500 steps."""
+    the 500 steps, and T_100 the T_sv after the first 100."""
     import torch
 
     from nanokappa_torch.ops import compact, compact_pool, megastep
@@ -445,9 +465,11 @@ def main_path(name, mat, dom, geo, btab, rtab, params, n_p, tabs, card):
     mods = (megastep, compact_pool, compact)
     for m in mods:
         m.launches = 0
-    for _ in range(2):  # warm up: reach the steady boundary-event mix
+    for k in range(2):  # warm up: reach the steady boundary-event mix
         state, out = run(state)
         torch.cuda.synchronize()
+        if k == 0:
+            T_100 = out.T_sv[-1].cpu().numpy()
     n_runs = 3  # 300 timesteps
     t0 = time.perf_counter()
     for _ in range(n_runs):
@@ -465,7 +487,7 @@ def main_path(name, mat, dom, geo, btab, rtab, params, n_p, tabs, card):
           f"k-model swaps {events[2]}", flush=True)
     print(f"{name}: {ups:.4g} updates/s ({elapsed / (n_runs * 100) * 1e3:.3f} ms/step) on {card}",
           flush=True)
-    return out, n0, launches, events, state
+    return out, n0, launches, events, state, T_100
 
 
 def perforated_plate(L=3e3, W=3e3, H=1e3, a=600.0):
@@ -806,6 +828,7 @@ def bigmesh_main(mat, card, device):
     mods = (megastep, compact_pool, compact, raycast_large)
     for m in mods:
         m.launches = 0
+    raycast_large.launch_widths.clear()
     t0 = time.perf_counter()
     td = tempfile.mkdtemp(prefix="chip_smoke_bigmesh_")
     sim = Simulation(read_args(cli_argv(BIGMESH, td, device, BIG_STEPS, "constant")), material=mat)
@@ -814,6 +837,7 @@ def bigmesh_main(mat, card, device):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {m.__name__.rsplit(".", 1)[1]: m.launches for m in mods}
+    launches["raycast_large by rays"] = dict(sorted(raycast_large.launch_widths.items()))
 
     tm = sim.timer
     row = sim.window[-1]
@@ -857,7 +881,7 @@ def bigmesh_main(mat, card, device):
         "bigmesh: population within 5%": abs(n_alive - n0) <= 0.05 * n0,
         "bigmesh: T_sv in (295, 305)": bool(((T > 295.0) & (T < 305.0)).all()),
         "bigmesh: T_sv falling hot to cold": bool((np.diff(T) < 0).all()),
-        "bigmesh: E, A, B, C launched": all(v > 0 for v in launches.values()),
+        "bigmesh: E, A, B, C launched": all(launches[m.__name__.rsplit(".", 1)[1]] > 0 for m in mods),
         f"bigmesh: {BIG_STEPS} steps run": sim.current_timestep == BIG_STEPS,
         "bigmesh: result files written": all(
             os.path.getsize(os.path.join(sim.folder, f)) > 0 for f in files
@@ -867,6 +891,204 @@ def bigmesh_main(mat, card, device):
         } and len(lines) == 1 + BIG_STEPS // 10,
     }
     return sim, td, launches, checks
+
+
+def star_argv(folder: str, device) -> list[str]:
+    """examples/voronoi_star.txt as written, with the synthetic material
+    (the card's machine has no h5py to read a written one: Simulation takes
+    the 31^3 Material instead), 10^6 particles, STAR_STEPS steps, the bench's
+    1.25 pool margin and seed, the results under `folder`."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, STAR_FILE)) as f:
+        words = f.read().split()
+    swap = {"--mat_folder": ["."], "--hdf_file": ["synthetic"], "--poscar_file": ["synthetic"],
+            "--particles": ["total", f"{PARTICLES:.0f}"], "--iterations": [str(STAR_STEPS)],
+            "--results_folder": [folder], "--output": ["screen"]}
+    out, i = [], 0
+    while i < len(words):
+        j = i + 1
+        while j < len(words) and not words[j].startswith("--"):
+            j += 1
+        out += [words[i], *swap.get(words[i], words[i + 1 : j])]
+        i = j
+    return out + ["--pool_margin", "1.25", "--seed", str(SEED), "--device", str(device)]
+
+
+def star_main(mat, card, device):
+    """The star through the driver on the v1 step: the launch counters
+    zeroed just before the Simulation is built and read after its run.
+    Returns (sim, its folder, launches, checks)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nanokappa_torch.driver import Simulation
+    from nanokappa_torch.io.config import read_args
+    from nanokappa_torch.ops import compact, compact_pool, megastep, scatter_rows
+    from nanokappa_torch.sim.fused import event_window
+
+    mods = (megastep, compact_pool, compact, scatter_rows)
+    for m in mods:
+        m.launches = 0
+    t0 = time.perf_counter()
+    td = tempfile.mkdtemp(prefix="chip_smoke_star_")
+    sim = Simulation(read_args(star_argv(td, device)), material=mat)
+    t_setup = time.perf_counter() - t0
+    sim.run(verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {m.__name__.rsplit(".", 1)[1]: m.launches for m in mods}
+
+    tm = sim.timer
+    row = sim.window[-1]
+    n0, n_alive = sim.n_p_target, int(row["N_p"])
+    lost, T = row["lost_split"], row["T"]
+    steps_t = tm.calls["device_step"][-3:]
+    ups = n_alive * 300 / sum(steps_t)
+    evt = event_window(sim.geo, sim.mtab, sim.btab, sim.params)
+    dom = sim.domain
+    res_c = dom.mesh.facet_centroids[dom.res_facets]
+    hot, cold = res_c[np.argmax(dom.res_values)], res_c[np.argmin(dom.res_values)]
+    c = dom.subvol_center
+    i_hot = int(np.argmin(np.linalg.norm(c - hot, axis=1)))
+    i_cold = int(np.argmin(np.linalg.norm(c - cold, axis=1)))
+    stuck_rate = lost[1] / (n0 * STAR_STEPS)
+    print(f"star: {sim.geo.tri_origin.shape[0]} triangles, {sim.geo.n_facets} facets, "
+          f"{sim.geo.n_subvols} {sim.geo.subvol_type} cells, temp_interp {sim.params.temp_interp}, "
+          f"step v1 ({sim.v1_reason}), layout {sim.state.layout}, {n0} particles, pool "
+          f"{sim.params.n_cap}, inj_cap {sim.params.inj_cap}, c_max {sim.params.c_max}, evt_cap {evt} "
+          f"(regrows {sim.evt_regrows})", flush=True)
+    print(f"star: centres {[[round(float(x), 1) for x in ci] for ci in c]}", flush=True)
+    print(f"star: T_sv {[round(float(t), 3) for t in T]} (nearest the hot cap: cell {i_hot}, "
+          f"the cold: cell {i_cold})", flush=True)
+    print(f"star: N_p {n_alive} (start {n0}), lost {lost.tolist()} (k_max-stuck {stuck_rate:.3g} per "
+          f"particle-step), frozen {row['frozen']}, escaped {sim.n_escaped_total}, launches {launches}",
+          flush=True)
+    print(f"star: {ups:.4g} updates/s ({sum(steps_t) / 300 * 1e3:.3f} ms/step, device_step of the last 3 "
+          f"blocks) on {card}; driver wall {wall:.1f} s (setup {t_setup:.1f} s)", flush=True)
+    print("star: " + tm.report().replace("\n", "\nstar: "), flush=True)
+
+    def rows_of(name):
+        with open(os.path.join(sim.folder, name)) as f:
+            return [line for line in f.read().splitlines() if not line.startswith("#")]
+
+    sv_rows, con_rows = rows_of("subvolumes.txt"), rows_of("subvol_connections.txt")
+    with open(os.path.join(sim.folder, "convergence.txt")) as f:
+        lines = f.read().splitlines()
+    n_cols = {len(line.split()) for line in lines[1:]}
+    R, SV = sim.geo.n_reservoirs, sim.geo.n_subvols
+    checks = {
+        "star: the v1 step, for radial temperatures": sim.v1_reason == STAR_REASON
+        and sim.state.layout == "plain",
+        "star: nothing dropped or defective": lost[0] == 0 and lost[2] == 0,
+        "star: k_max-stuck <= 1e-5 per particle-step": stuck_rate <= 1e-5,
+        "star: frozen under 1% of N": int(row["frozen"]) < 0.01 * n0,
+        "star: population within 5%": abs(n_alive - n0) <= 0.05 * n0,
+        "star: T_sv in (295, 305)": bool(((T > 295.0) & (T < 305.0)).all()),
+        "star: the cell nearest the hot cap hotter than the one nearest the cold": bool(T[i_hot] > T[i_cold]),
+        "star: D, C, B launched": all(launches[k] > 0 for k in ("scatter_rows", "compact", "compact_pool")),
+        "star: kernel A not launched (v1)": launches["megastep"] == 0,
+        "star: D launched once per step": launches["scatter_rows"] == STAR_STEPS,
+        f"star: {STAR_STEPS} steps run": sim.current_timestep == STAR_STEPS,
+        "star: subvolumes.txt in the JAX driver's columns": len(sv_rows) == SV
+        and all(len(r.split(",")) == 13 for r in sv_rows),
+        "star: subvol_connections.txt in the JAX driver's columns":
+        len(con_rows) == len(dom.subvol_connections) > 0 and all(len(r.split(",")) == 12 for r in con_rows),
+        "star: convergence.txt in the JAX driver's columns":
+        n_cols == {4 + 4 * R + 1 + 6 * SV + len(dom.subvol_connections)}
+        and len(lines) == 1 + STAR_STEPS // 10,
+        "star: particle_data.txt written": os.path.getsize(os.path.join(sim.folder, "particle_data.txt")) > 0,
+    }
+    return sim, td, launches, checks
+
+
+def check_scatter_rows(sim, device):
+    """Kernel D against its twin on the star's own event buffer, bit for
+    bit: the lanes the next step's drift stops at a facet (alive, t_coll
+    short of the step, a facet ahead), compacted by kernel C at the v1
+    width, their rows gathered and perturbed (float rows shifted, int rows
+    given other ids). Also a sentinel-only buffer (the pool must not move).
+    Timed beside its twin and `index_copy_` on the valid prefix. Returns
+    the records of D and of C at the v1 width."""
+    import torch
+
+    from nanokappa_torch.ops import compact, scatter_rows as sr
+    from nanokappa_torch.sim.cascade import v1_event_cap
+    from nanokappa_torch.sim.state import C_ALIVE, C_CF, C_MODE, C_ONF, C_SV, C_TCOLL, as_f32, as_i32
+
+    pool = sim.state.pool
+    C, N = pool.shape
+    E = v1_event_cap(sim.params)
+    mask = (pool[C_ALIVE] > 0.5) & (pool[C_TCOLL] < 1.0 - 1e-5) & (as_i32(pool[C_CF]) >= 0)
+    rec_c = check_compact("compact_indices[v1 events]", [mask], E)
+    pidx, n_valid = compact.compact_indices(mask, E)
+    n = int(n_valid)
+    rows = pool[:, torch.clamp(pidx, max=N - 1).long()].clone()
+    fl = [r for r in range(C) if r not in (C_MODE, C_CF, C_ONF, C_ALIVE, C_SV)]
+    rows[fl] = rows[fl] * 1.5 + 0.25
+    for r in (C_MODE, C_CF, C_ONF, C_SV):
+        rows[r] = as_f32(as_i32(rows[r]) ^ 1)
+    rows = rows.contiguous()
+    err = 0.0
+    for idx, tag in ((pidx, "events"), (torch.full((E,), N, dtype=torch.int32, device=device), "sentinels")):
+        pk, pp = pool.clone(), pool.clone()
+        sr.scatter_rows(pk, rows, idx)
+        sr.scatter_rows_plain(pp, rows, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(pk.view(torch.int32), pp.view(torch.int32)):
+            raise AssertionError(f"scatter_rows differs from its twin ({tag})")
+        if tag == "sentinels" and not torch.equal(pk.view(torch.int32), pool.view(torch.int32)):
+            raise AssertionError("scatter_rows moved the pool on a sentinel-only buffer")
+    moved = int((pk.view(torch.int32) != pool.view(torch.int32)).any(0).sum())
+    print(f"  scatter_rows[star events]: {n} valid of {E} lanes ({mask.sum().item()} in the mask), "
+          f"bit-exact; the sentinel-only buffer moved {moved} lanes", flush=True)
+    target = pool.clone()
+    pv, rv = pidx[:n].long(), rows[:, :n].contiguous()
+    b_ms, b_by = bound(4 * E + 2 * n * C * 4, 0)
+    rec_d = dict(
+        name="scatter_rows[star events]", route="cuda", source="nanokappa_torch/csrc/scatter_rows.cu",
+        replaces="nanokappa_tpu/ops/scatter_rows.py:123", max_abs_err=err, match="bit-exact",
+        ms=timed(lambda p: sr.scatter_rows(p, rows, pidx), target, 50),
+        plain_ms=timed(lambda p: sr.scatter_rows_plain(p, rows, pidx), target, 20),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=timed(lambda p: p.index_copy_(1, pv, rv), target, 50),
+    )
+    return rec_d, rec_c
+
+
+def v1_film(mat, f_dom, f_geo, f_btab, f_rtab, f_params, f_np, tabs, T_v2):
+    """The bench film on the v1 step (step_impl="v1": the plain pool, the
+    same seed's initial particles as the v2 film) for V1_FILM_STEPS steps;
+    returns (out, n0, kernel D launches, max |T_sv - T_v2|)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from nanokappa_torch.ops import scatter_rows
+    from nanokappa_torch.sim.state import init_state
+    from nanokappa_torch.sim.step import build_step
+
+    params = dataclasses.replace(f_params, step_impl="v1")
+    state = init_state(mat, f_dom, f_geo, params, f_np, f_btab, temp_dist="linear", seed=SEED)
+    n0 = int(state.alive.sum())
+    run = build_step(f_geo, tabs, f_btab, f_rtab, params, n_inner=10, n_outer=V1_FILM_STEPS // 10)
+    scatter_rows.launches = 0
+    t0 = time.perf_counter()
+    state, out = run(state)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    T = out.T_sv[-1].cpu().numpy()
+    dT = float(np.abs(T - T_v2).max())
+    print(f"film v1: layout {state.layout}, T_sv {[round(float(t), 3) for t in T]}, max |T_sv - T_sv(v2)| "
+          f"{dT:.4f} K after {V1_FILM_STEPS} steps; N_p {int(out.N_p[-1])} (start {n0}), lost "
+          f"{out.lost_split[-1].tolist()}, frozen {int(out.frozen[-1])}, kernel D launches "
+          f"{scatter_rows.launches}, {elapsed / V1_FILM_STEPS * 1e3:.3f} ms/step", flush=True)
+    return out, n0, scatter_rows.launches, dT, state.layout
 
 
 def check_raycast_large(name, geo, pos, vel, ex):
@@ -909,6 +1131,7 @@ def bigmesh_kernel_checks(sim, device):
     from nanokappa_torch.ops import compact_pool
     from nanokappa_torch.ops.megastep import drift_megastep, mega_config
     from nanokappa_torch.ops.raycast import raycast
+    from nanokappa_torch.sim.cascade import pad8
     from nanokappa_torch.sim.fused import event_window
     from nanokappa_torch.sim.state import C_ALIVE, C_CF, C_DEV, C_ONF, C_TCOLL, as_f32
 
@@ -933,6 +1156,9 @@ def bigmesh_kernel_checks(sim, device):
         "E_inj": check_raycast_large("raycast_large[injections]", geo, pos[: sim.params.inj_cap],
                                      vel[: sim.params.inj_cap], ex[: sim.params.inj_cap]),
         "E_evt": check_raycast_large("raycast_large[events]", geo, pos[:evt], vel[:evt], ex[:evt]),
+        # the narrow rounds 2+ (sim/fused.py evt2_cap: EVT_CAP // 16 here)
+        "E_narrow": check_raycast_large("raycast_large[narrow rounds]", geo, pos[:pad8(max(evt // 16, 512))],
+                                        vel[:pad8(max(evt // 16, 512))], ex[:pad8(max(evt // 16, 512))]),
     }
     # kernel A, cast-off: the compacted pool with 1% of its lanes pre-cast
     pool_c, _ = compact_pool.compact_pool_plain(pool)
@@ -976,6 +1202,7 @@ def main(device=None) -> None:
 
     card = card_line()
     print(card, flush=True)
+    t_start = time.perf_counter()
 
     device = torch.device(device or "cuda:0")
     t0 = time.perf_counter()
@@ -1071,7 +1298,7 @@ def main(device=None) -> None:
 
     # ---- the main paths ---------------------------------------------------------
     checks = {}
-    out, n0, f_launch, _, _ = main_path("film", mat, f_dom, f_geo, f_btab, f_rtab, f_params, f_np, tabs, card)
+    out, n0, f_launch, _, _, f_T100 = main_path("film", mat, f_dom, f_geo, f_btab, f_rtab, f_params, f_np, tabs, card)
     T = out.T_sv[-1].cpu().numpy()
     n_alive, lost = int(out.N_p[-1]), out.lost_split[-1].tolist()
     checks.update({
@@ -1081,7 +1308,17 @@ def main(device=None) -> None:
         "film: T_sv hot end > cold end": bool(T[0] > T[-1]),
         "film: A, B, C launched": all(v > 0 for v in f_launch.values()),
     })
-    out, n0, w_launch, events, _ = main_path("wire", mat, w_dom, w_geo, w_btab, w_rtab, w_params, w_np, tabs, card)
+    # ---- the same film on the v1 step: the card's cross-check of the steps ---
+    out, n0, v1_d, v1_dT, v1_layout = v1_film(mat, f_dom, f_geo, f_btab, f_rtab, f_params, f_np, tabs, f_T100)
+    T = out.T_sv[-1].cpu().numpy()
+    checks.update({
+        "film v1: the plain pool (the v1 step)": v1_layout == "plain",
+        "film v1: lost == 0": int(out.lost[-1]) == 0,
+        "film v1: T_sv in (298, 302)": bool(((T > 298.0) & (T < 302.0)).all()),
+        "film v1: within 0.5 K of the v2 film": v1_dT <= 0.5,
+        "film v1: D launched once per step": v1_d == V1_FILM_STEPS,
+    })
+    out, n0, w_launch, events, _, _ = main_path("wire", mat, w_dom, w_geo, w_btab, w_rtab, w_params, w_np, tabs, card)
     T = out.T_sv[-1].cpu().numpy()
     n_alive, lost = int(out.N_p[-1]), out.lost_split[-1].tolist()
     checks.update({
@@ -1154,7 +1391,7 @@ def main(device=None) -> None:
     k_params = dataclasses.replace(k_params, temp_interp="linear", scat_model="k")
     print(f"k film: layout {'slim' if mirror_eligible(k_geo, k_btab, k_params, tabs) else 'plain'}, "
           f"evt_cap {event_window(k_geo, tabs, k_btab, k_params)}", flush=True)
-    out, n0, k_launch, events, k_state = main_path(
+    out, n0, k_launch, events, k_state, _ = main_path(
         "k film", mat, k_dom, k_geo, k_btab, k_rtab, k_params, k_np, tabs, card,
     )
     T = out.T_sv[-1].cpu().numpy()
@@ -1205,12 +1442,24 @@ def main(device=None) -> None:
     checks.update(b_checks)
     t0 = time.perf_counter()
     recs.update(bigmesh_kernel_checks(sim, device))
-    for k in ("E_pool", "E_inj", "E_evt", "castoff"):
+    for k in ("E_pool", "E_inj", "E_evt", "E_narrow", "castoff"):
         r = recs[k]
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']:.3g} "
               f"({r['match']})", flush=True)
     print(f"large-mesh kernel checks passed in {time.perf_counter() - t0:.1f} s", flush=True)
+    shutil.rmtree(sim_dir, ignore_errors=True)
+    del sim
+    torch.cuda.empty_cache()
+
+    # ---- the star through the driver (the v1 step), then kernel D ------------
+    sim, sim_dir, s_launch, s_checks = star_main(mat, card, device)
+    checks.update(s_checks)
+    recs["D"], recs["C_v1"] = check_scatter_rows(sim, device)
+    for r in (recs["D"], recs["C_v1"]):
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
+              f"{r['max_abs_err']:.3g} ({r['match']})", flush=True)
     shutil.rmtree(sim_dir, ignore_errors=True)
     failed = [k for k, v in checks.items() if not v]
     if failed:
@@ -1228,10 +1477,13 @@ def main(device=None) -> None:
     recs["kfilm0"]["launches"] = k0_launch["megastep"]
     recs["pool_full"]["launches"] = k0_launch["compact_pool"]
     recs["plate"]["launches"] = p_launch["megastep"]
-    for k in ("E_pool", "E_inj", "E_evt"):
+    for k in ("E_pool", "E_inj", "E_evt", "E_narrow"):
         recs[k]["launches"] = b_launch["raycast_large"]
+    recs["D"]["launches"] = s_launch["scatter_rows"]
+    recs["C_v1"]["launches"] = s_launch["compact"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in recs.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

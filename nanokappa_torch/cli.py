@@ -2,8 +2,12 @@
 nanokappa_tpu/cli.py).
 
 Run e.g.:
-    python -m nanokappa_torch.cli -ff parameters.txt                  # on the card
-    python -m nanokappa_torch.cli -ff parameters.txt --device cpu     # on the CPU
+    python -m nanokappa_torch.cli -ff parameters.txt    # on the card
+    python -m nanokappa_torch.cli --geometry box ... --device cpu    # on the CPU
+With -ff the file's words are all the arguments (as in the JAX CLI): a file
+that says `--device cpu` runs on the CPU. Configurations outside the fused
+step's envelope (e.g. examples/voronoi_star.txt: radial temperatures) run
+the v1 step; the driver prints why.
 
 The figures (--fig_plot, the init and postprocess plots, --postprocess) are
 not ported yet (ROADMAP queue 1, item 13).

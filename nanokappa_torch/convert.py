@@ -14,7 +14,11 @@ imports neither jax nor the JAX package.
     bitmask, are dropped: the port's kernel gathers them per mode). Back to
     JAX, the slim layout rebuilds the full mirror cache (exact under the
     slim gate), the full layout gives its rows 16-23 back, and the plain
-    layout gives an unfilled cache (X_MODE = -1).
+    layout gives an unfilled cache (X_MODE = -1). The JAX v2 step keeps its
+    pool's tail in free_count[0], the JAX v1 step a free list of dead lanes
+    (ascending, its depth in free_count[0]); `v1=True` converts that one:
+    to the port, the tail is past the last alive lane; back to JAX, the
+    free list holds every dead lane.
   * `tables_from_jax`: MaterialTables, DeviceGeometry (the triangle tables
     and the grid/voronoi centres included; the centres' |c|^2 are derived
     from them), BoundaryTables (diff2 included) and ReservoirTables, field
@@ -31,15 +35,15 @@ import torch
 
 from nanokappa_torch.geometry.device import resolve_device
 from nanokappa_torch.sim.state import (
-    M_COLS, X_MODE, X_TAUB, SimState, make_generator,
+    C_ALIVE, M_COLS, X_MODE, X_TAUB, SimState, make_generator,
 )
 
 
-def state_from_jax(d: dict, layout: str, device=None, seed: int = 0) -> SimState:
+def state_from_jax(d: dict, layout: str, device=None, seed: int = 0, v1: bool = False) -> SimState:
     """The port's SimState, in `layout` ("slim" | "full" | "plain"), from a JAX
-    SimState's arrays (on `device`, the card unless named). The port's
-    random stream is a torch Generator seeded with `seed` (threefry keys do
-    not carry over)."""
+    SimState's arrays (on `device`, the card unless named); `v1` for a JAX
+    v1 state (a free list, not a tail). The port's random stream is a torch
+    Generator seeded with `seed` (threefry keys do not carry over)."""
     device = resolve_device(device)
     packed = np.asarray(d["packed"], np.float32)[:, :16]
     if layout == "slim":
@@ -61,7 +65,7 @@ def state_from_jax(d: dict, layout: str, device=None, seed: int = 0) -> SimState
         T_sv=t("T_sv", np.float32),
         Np_sv=t("Np_sv", np.int32),
         T_tau=t("T_tau", np.float32),
-        tail=int(np.asarray(d["free_count"])[0]),
+        tail=_last_alive(packed) + 1 if v1 else int(np.asarray(d["free_count"])[0]),
         res_counter=np.array(d["res_counter"], np.float32),
         n_leaving=t("n_leaving", np.int32),
         res_energy_balance=t("res_energy_balance", np.float32),
@@ -74,10 +78,16 @@ def state_from_jax(d: dict, layout: str, device=None, seed: int = 0) -> SimState
     )
 
 
-def state_to_jax(state: SimState, flip_axis: int | None = None) -> dict:
+def _last_alive(packed: np.ndarray) -> int:
+    alive = np.nonzero(packed[:, C_ALIVE] > 0.5)[0]
+    return int(alive[-1]) if len(alive) else -1
+
+
+def state_to_jax(state: SimState, flip_axis: int | None = None, v1: bool = False) -> dict:
     """A JAX SimState's arrays (without its PRNG key) from the port's state;
     `flip_axis` is the slim gate's wall axis (sim/boundary_tables.py
-    slim_mirror_axis), needed on the slim layout only."""
+    slim_mirror_axis), needed on the slim layout only; `v1` for the JAX v1
+    step, which injects into a free list of the dead lanes."""
     from nanokappa_torch.sim.fused import expand_slim_mirror
 
     pool = state.pool
@@ -93,15 +103,22 @@ def state_to_jax(state: SimState, flip_axis: int | None = None) -> dict:
     else:
         mirror = np.zeros((n, M_COLS), np.float32)
         mirror[:, X_MODE] = np.full(n, -1, np.int32).view(np.float32)
+    packed = np.ascontiguousarray(a(pool[:16]).T)
+    free_list = np.zeros(n, np.int32)
+    free_count = np.array([state.tail], np.int32)
+    if v1:
+        dead = np.nonzero(packed[:, C_ALIVE] < 0.5)[0].astype(np.int32)
+        free_list[: len(dead)] = dead
+        free_count[0] = len(dead)
     return dict(
-        packed=np.ascontiguousarray(a(pool[:16]).T),
+        packed=packed,
         mirror=mirror,
         sv_id=a(state.sv_col),
         T_sv=a(state.T_sv),
         Np_sv=a(state.Np_sv),
         T_tau=a(state.T_tau),
-        free_list=np.zeros(n, np.int32),
-        free_count=np.array([state.tail], np.int32),
+        free_list=free_list,
+        free_count=free_count,
         res_counter=state.res_counter.copy(),
         n_leaving=a(state.n_leaving),
         res_energy_balance=a(state.res_energy_balance),

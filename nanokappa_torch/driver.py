@@ -13,10 +13,15 @@ of the event window (at most 3 regrows, capped at n_cap/4; the runner is
 rebuilt, nothing is recompiled), the lost-lane telemetry, the escape
 repair, the residue and the particle_data.txt checkpoint.
 
-It runs on the card unless --device names another device. Configurations
+It runs on the card unless --device names another device. Like the JAX
+driver, it takes the fused v2 step wherever the configuration is eligible
+and the general v1 step elsewhere (sim/fused.py v2_eligible), logging why
+(nanokappa_tpu/driver.py:325-330); the v1 step has no deferred RTA, so
+nothing is finalised before a particle_data.txt write. Configurations
 outside the ported paths raise NotImplementedError naming their ROADMAP
-item: the JAX driver's v1 step (item 11) and several shards (item 12) have
-no counterpart.
+item: the 'fixed_rate' and 'one_to_one' reservoirs (item 5), more than 32
+rough-wall table rows with in-kernel diffuse reflection (item 10) and
+several shards (item 12).
 """
 
 from __future__ import annotations
@@ -40,7 +45,9 @@ from nanokappa_torch.material.tables import Material, bose_einstein
 from nanokappa_torch.sim.boundary_tables import (
     build_boundary_tables, write_specular_correspondences,
 )
-from nanokappa_torch.sim.fused import event_window, make_finalize
+from nanokappa_torch.sim.fused import (
+    event_window, make_finalize, v2_fallback_reason,
+)
 from nanokappa_torch.sim.kappa import kappa_connections, kappa_slice
 from nanokappa_torch.sim.repair import make_contains_check
 from nanokappa_torch.sim.reservoir import (
@@ -246,13 +253,19 @@ class Simulation:
     def _build_runners(self):
         """The batched runner (CONV_BATCH datapoints per call), the lazily
         built 1-datapoint tail runner and the finaliser for the current
-        parameters."""
+        parameters: the v2 step's applies its pending deferred RTA, the v1
+        step has none. On the v1 step the reason is logged."""
         self.run_steps = build_step(
             self.geo, self.mtab, self.btab, self.rtab, self.params,
             n_inner=N_DT_TO_CONV, n_outer=CONV_BATCH,
         )
         self._run_tail = None
-        self._finalize = make_finalize(self.geo, self.mtab, self.params)
+        self.v1_reason = v2_fallback_reason(self.geo, self.params)
+        if self.v1_reason is None:
+            self._finalize = make_finalize(self.geo, self.mtab, self.params)
+        else:
+            print(f"NOTE: running the v1 step (no fused drift kernel): {self.v1_reason}", flush=True)
+            self._finalize = lambda s: s
 
     def _rebuild_step(self, evt_cap: int):
         """Rebuild the runners with a wider event window (frozen-storm

@@ -44,6 +44,7 @@ _SIGNATURES = {
     "nk_compact_pool": [_P, _P, _I, _I, _P, _P, _P],
     "nk_megastep": [_P] * 12,
     "nk_raycast_large": [_P, _P, _L, _L, _L, _L, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+    "nk_scatter_rows": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 _LIB = None

@@ -11,8 +11,12 @@ Torch twin of nanokappa_tpu/ops/raycast.py:
     the first triangle winning a tie, as in either JAX form,
   * larger meshes of up to 65,536 triangles: kernel E, the Morton-chunked
     plane solve (ops/raycast_large.py; the JAX package's `raycast_pallas`
-    on its TPU and its `_raycast_broadcast` scan elsewhere). Beyond that
-    the cast raises, naming the ROADMAP item that ports it.
+    on its TPU and its `_raycast_broadcast` scan elsewhere),
+  * beyond that (the v1 step's meshes): `_raycast_broadcast`, the dense
+    cast over 256-triangle chunks with a running minimum in which only a
+    strictly smaller t replaces the best hit (the JAX scan's tie rule,
+    nanokappa_tpu/ops/raycast.py:148-186). Plain torch, as in the JAX
+    package: no kernel.
 The in-kernel cast of kernel A (csrc/megastep.cu) runs the same arithmetic
 per triangle in the same operation order, so `tri_cast` is also its plain
 twin.
@@ -57,10 +61,7 @@ def raycast(geo: DeviceGeometry, pos, vel, exclude_facet):
     from nanokappa_torch.ops.raycast_large import large_eligible, raycast_large
 
     if not large_eligible(geo):
-        raise NotImplementedError(
-            f"meshes of {geo.tri_origin.shape[0]} triangles (> 65,536) need the "
-            "v1 step's cast, which is not ported yet (ROADMAP queue 1, item 11)"
-        )
+        return _raycast_broadcast(geo, pos, vel, exclude_facet)
     return raycast_large(geo, pos, vel, exclude_facet)
 
 
@@ -140,3 +141,21 @@ def _raycast_tri(geo, pos, vel, exclude_facet):
         tri, [pos[:, k] for k in range(3)], [vel[:, k] for k in range(3)],
         exclude_facet,
     )
+
+
+def _raycast_broadcast(geo, pos, vel, exclude_facet):
+    """The dense cast over CHUNK_F-triangle chunks of the triangle table:
+    within a chunk tri_cast's rule (the first triangle at the smallest t),
+    across chunks a running minimum that only a strictly smaller t
+    replaces."""
+    tri = tri_table(geo)
+    p = [pos[:, k] for k in range(3)]
+    v = [vel[:, k] for k in range(3)]
+    best_t = torch.full((pos.shape[0],), float("inf"), device=pos.device)
+    best_f = torch.full((pos.shape[0],), -1, dtype=torch.int32, device=pos.device)
+    for s in range(0, tri.shape[0], CHUNK_F):
+        t, f = tri_cast(tri[s : s + CHUNK_F], p, v, exclude_facet)
+        closer = t < best_t
+        best_t = torch.where(closer, t, best_t)
+        best_f = torch.where(closer, f, best_f)
+    return best_t, best_f

@@ -48,6 +48,7 @@ import torch
 from nanokappa_torch.geometry.device import host
 
 launches = 0  # kernel launches (the CUDA path only)
+launch_widths: dict[int, int] = {}  # the same launches by ray count
 
 BF = 128  # triangles per chunk
 NC_MAX = 512  # chunks: 65,536 triangles (sim/fused.py LARGE_TRI_MAX)
@@ -275,4 +276,5 @@ def raycast_large(geo, pos, vel, exclude, solved: torch.Tensor | None = None):
     )
     _cuda.check(err, "nk_raycast_large")
     launches += 1
+    launch_widths[N] = launch_widths.get(N, 0) + 1
     return t, f

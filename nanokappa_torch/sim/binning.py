@@ -1,16 +1,17 @@
 """Subvolume ids, temperature lookups and segment sums (torch twin of
-nanokappa_tpu/sim/binning.py, slice, grid and voronoi subvolumes with
-nearest or linear interpolation).
+nanokappa_tpu/sim/binning.py, slice, grid and voronoi subvolumes).
 
   * subvolume id: slice -> index arithmetic; grid/voronoi -> the first
     nearest centre by d = |c|^2 - 2 q.c, the drift kernel's own formula
     (csrc/megastep.cu sv_of), so one classifier serves the kernel, the
     narrow machinery and the host,
-  * particle temperature: nearest (T_sv of the subvolume) or, on slices,
-    linear along the slice axis with extrapolation at both ends,
+  * particle temperature: nearest (T_sv of the subvolume), linear along
+    the slice axis with extrapolation at both ends (slices), or the cubic
+    RBF through the subvolume centres ('radial', the v1 step's),
   * T = f(E) and E = f(T): searchsorted + lerp over the monotone tables
     (classes/Phonon.py:372-390),
-  * segment sums: `index_add_` into one overflow row that is dropped.
+  * segment sums: `index_add_` into one overflow row that is dropped;
+    `bin_all` is the v1 step's subvolume reduction on them.
 """
 
 from __future__ import annotations
@@ -82,17 +83,45 @@ def interp_T_particles(
     sv: torch.Tensor, kind: str,
 ) -> torch.Tensor:
     """Temperature at particle positions from subvolume temperatures
-    (reference classes/Population.py:685-702): 'nearest', or 'linear' on
-    slices."""
+    (reference classes/Population.py:685-702): 'linear' on slices, 'radial'
+    (the cubic RBF) on any subvolumes, 'nearest' otherwise — 'linear' on
+    grid/voronoi subvolumes falls through to nearest, as in the JAX package
+    (nanokappa_tpu/sim/binning.py:53-65)."""
     if kind == "linear" and geo.subvol_type == "slice":
         c0, dc = linear_axis(geo)
         return interp_T_linear(T_sv, pos[:, geo.slice_axis], c0, dc)
-    if kind != "nearest":
-        raise NotImplementedError(
-            f"temp_interp={kind!r} on {geo.subvol_type} subvolumes is not ported yet "
-            "(ROADMAP queue 1, item 11: the v1 step)"
-        )
+    if kind == "radial":
+        return rbf_interp(geo.subvol_center, T_sv, pos)
     return T_sv[sv.long()]
+
+
+def rbf_interp(centers: torch.Tensor, values: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Cubic RBF interpolation through `values` at `centers`, at the points
+    x (scipy RBFInterpolator kernel='cubic' with a degree-1 polynomial;
+    reference classes/Population.py:574-588; nanokappa_tpu/sim/binning.py
+    _rbf_interp :66). The augmented (SV+4, SV+4) system is solved on the
+    device in float64 (`solve_ex`: no host read of its status) — the
+    kernel |d|^3 spans ~1e11 on Angstrom-scale centres, beyond float32's
+    digits — and evaluated in float64 with the JAX package's distance
+    formula |x - c| (not the expanded |x|^2 form), chunked over the points.
+    Returns float32 temperatures."""
+    n = centers.shape[0]
+    c = centers.double()
+    K = torch.linalg.vector_norm(c[:, None, :] - c[None, :, :], dim=-1) ** 3
+    P = torch.cat([torch.ones((n, 1), dtype=c.dtype, device=c.device), c], dim=1)
+    A = torch.zeros((n + 4, n + 4), dtype=c.dtype, device=c.device)
+    A[:n, :n] = K
+    A[:n, n:] = P
+    A[n:, :n] = P.T
+    b = torch.cat([values.double(), torch.zeros(4, dtype=c.dtype, device=c.device)])
+    coef, _ = torch.linalg.solve_ex(A, b)
+    out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    step = max(1, _CHUNK // max(n, 1))
+    for s in range(0, x.shape[0], step):
+        q = x[s : s + step].double()
+        phi = torch.linalg.vector_norm(q[:, None, :] - c[None], dim=-1) ** 3
+        out[s : s + step] = (phi @ coef[:n] + coef[n] + q @ coef[n + 1 :]).float()
+    return out
 
 
 def _lerp_lookup(x_grid, y_grid, x):
@@ -134,3 +163,37 @@ def segment_sum(vals: torch.Tensor, seg: torch.Tensor, n_seg: int) -> torch.Tens
     )
     out.index_add_(0, seg, vals)
     return out[:n_seg]
+
+
+def bin_all(
+    geo: DeviceGeometry,
+    mat: MaterialTables,
+    energies: torch.Tensor,  # (N,)
+    vel: torch.Tensor,  # (N,3)
+    sv: torch.Tensor,
+    alive: torch.Tensor,
+    energy_normal: str,
+    particle_density: float,
+):
+    """All subvolume reductions of the v1 step in one segment sum of
+    [e, e*vx, e*vy, e*vz, alive] (nanokappa_tpu/sim/binning.py bin_all
+    :131; reference classes/Population.py:704-747). Returns (E_dev_sv (SV,)
+    eV/A^3, phi_sv (SV,3) in eV/ps/A^2, Np_sv (SV,) i32)."""
+    n_sv = geo.n_subvols
+    vals = torch.cat(
+        [energies[:, None], energies[:, None] * vel, alive.to(energies.dtype)[:, None]], dim=1
+    )
+    sums = segment_sum(vals, torch.where(alive, sv, n_sv), n_sv)
+    e_sv = sums[:, 0]
+    phi = sums[:, 1:4]
+    np_sv = sums[:, 4].to(torch.int32)
+    if energy_normal == "fixed":
+        norm = torch.full_like(geo.subvol_volume, float(mat.n_active_modes)) / (
+            particle_density * geo.subvol_volume
+        )
+    else:  # 'mean'
+        npf = torch.clamp(np_sv, min=1).to(e_sv.dtype)
+        norm = torch.full_like(npf, float(mat.n_active_modes)) / npf
+        norm = torch.where(np_sv == 0, 0.0, norm)
+    dens = 1.0 / (mat.n_qpoints * mat.volume_unitcell)
+    return e_sv * norm * dens, phi * (norm * dens)[:, None], np_sv

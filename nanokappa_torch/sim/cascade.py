@@ -1,8 +1,10 @@
-"""The narrow boundary-event machinery: absorb / periodic / reflect on a
-fixed-width buffer of exported particle rows.
+"""The boundary-event cascade: the v1 step's whole cascade (`run_cascade`)
+and the narrow machinery both steps share (`run_event_buffer`): absorb /
+periodic / reflect on a fixed-width buffer of particle rows.
 
-Torch twin of nanokappa_tpu/sim/cascade.py (`run_event_buffer` :283 and
-`_event_round` :482). Per round, a lane sitting on facet `coll_facet`:
+Torch twin of nanokappa_tpu/sim/cascade.py (`run_cascade` :133,
+`run_event_buffer` :283 and `_event_round` :482). Per round, a lane sitting
+on facet `coll_facet`:
   T/F facet -> absorbed, energy/flux ledgered per reservoir
                (classes/Population.py:1565-1608);
   P facet   -> translated by the facet-pair centroid offset
@@ -24,6 +26,12 @@ absorbing and periodic ones included, and each round's re-cast goes
 through ops/raycast.py to kernel E.
 
 Rows are SoA (16, E): the drift kernel exports them in that layout.
+
+The v1 cascade (`run_cascade`) runs the stale lanes' ray cast, one
+full-width drift written in place into the pool's rows, the event
+compaction (kernel C at the pool's width), the narrow machinery on the
+gathered event rows, and their merge back into the pool (kernel D,
+ops/scatter_rows.py).
 """
 
 from __future__ import annotations
@@ -38,13 +46,14 @@ from nanokappa_torch.geometry.domain import BC
 from nanokappa_torch.material.tables import MaterialTables
 from nanokappa_torch.ops.compact import compact_indices
 from nanokappa_torch.ops.raycast import raycast
+from nanokappa_torch.ops.scatter_rows import scatter_rows
 from nanokappa_torch.sim.binning import interp_T_particles, segment_sum, subvol_id
 from nanokappa_torch.sim.bose import occupation_delta_T, occupation_delta_omega
 from nanokappa_torch.sim.boundary_tables import K_MODELS, BoundaryTables
 from nanokappa_torch.sim.scatter import blend_tau_sv, lifetime_by_sv, lifetime_lookup
 from nanokappa_torch.sim.state import (
-    C_CF, C_DEV, C_MODE, C_OMEGA, C_ONF, C_POS, C_REM, C_SV, C_TAU, C_TCOLL,
-    C_VEL, SimParams, as_f32, as_i32,
+    C_ALIVE, C_CF, C_DEV, C_MODE, C_OMEGA, C_ONF, C_POS, C_REM, C_SV, C_TAU,
+    C_TCOLL, C_VEL, STALE, SimParams, SimState, as_f32, as_i32,
 )
 
 _REMAIN_EPS = 1e-5  # fraction of dt below which the remaining path is dust
@@ -86,6 +95,103 @@ class _Buf:
                 alive.float()[None], sv_bits[None],
             ]
         )
+
+
+def v1_event_cap(params: SimParams) -> int:
+    """EVT_CAP of the v1 cascade: the event compaction's width
+    (nanokappa_tpu/sim/cascade.py:154)."""
+    return pad8(params.evt_cap or max(params.inj_cap, params.n_cap // 16))
+
+
+def _set_lanes(row: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """A copy of the (N,) `row` with `vals` at the lanes idx; lanes idx == N
+    (the sentinel) land in a spare element that is dropped."""
+    ext = torch.cat([row, row[:1]])
+    ext[idx.long()] = vals
+    return ext[:-1]
+
+
+def run_cascade(
+    state: SimState,
+    stale_idx: torch.Tensor,  # (inj_cap,) i32 lanes needing a ray cast (the
+    #   injections sim/reservoir.py inject appended); N on unused lanes
+    geo: DeviceGeometry,
+    mat: MaterialTables,
+    btab: BoundaryTables,
+    params: SimParams,
+    gen: torch.Generator,
+) -> SimState:
+    """The v1 step's drift + boundary cascade on the plain 16-row pool,
+    IN PLACE (nanokappa_tpu/sim/cascade.py run_cascade :133): the stale
+    lanes' ray cast; one full-width drift of every alive lane by
+    min(t_coll, remaining), written into the pool's C_POS, C_CF, C_TCOLL
+    and C_REM rows; the lanes still on their way at a facet compacted by
+    kernel C into an EVT_CAP-wide buffer (ascending, sentinel N; the events
+    beyond EVT_CAP stay frozen for the step); the narrow machinery on their
+    rows; the rows merged back by kernel D. Absorbed lanes stay dead where
+    they are until kernel B compacts the pool (the port has no free list).
+    Ledgers, losses and frozen counts accumulate as device scalars: no
+    host read."""
+    pool = state.pool
+    if state.layout != "plain":
+        raise ValueError(f"the v1 cascade runs the 'plain' pool, the state is {state.layout!r}")
+    dt = params.dt
+    N = pool.shape[1]
+    R = geo.n_reservoirs
+    R8 = pad8(R + 1)
+    EVT_CAP = v1_event_cap(params)
+    dev = pool.device
+
+    # ---- stale ray casts at the freshly injected lanes ---------------------
+    rows_s = pool[:, torch.clamp(stale_idx, max=N - 1).long()]
+    t_b, f_b = raycast(geo, rows_s[C_POS].T, rows_s[C_VEL].T, as_i32(rows_s[C_ONF]))
+    coll_old = as_i32(pool[C_CF])
+    t_coll = _set_lanes(pool[C_TCOLL], stale_idx, t_b / dt)
+    coll_facet = _set_lanes(coll_old, stale_idx, f_b)
+    alive = pool[C_ALIVE] > 0.5
+    # defensive: a STALE alive lane left over (an externally edited state)
+    # freezes for this step instead of drifting blindly
+    was_stale = coll_old == STALE
+    still_stale = alive & (coll_facet == STALE)
+    t_coll = torch.where(still_stale, float("inf"), t_coll)
+    # remaining dt fraction: fresh injections carry their partial dt_in/dt
+    # in C_REM (they are the lanes that were STALE before the cast)
+    remaining = torch.where(
+        was_stale & alive, pool[C_REM], torch.where(alive, 1.0, 0.0)
+    )
+
+    # ---- phase A: one full-width drift, in place ------------------------------
+    step_frac = torch.where(alive & ~still_stale, torch.minimum(t_coll, remaining), 0.0)
+    step_frac = torch.where(torch.isfinite(step_frac), step_frac, remaining)
+    step_frac = torch.where(still_stale, 0.0, step_frac)
+    pool[C_POS] = pool[C_POS] + pool[C_VEL] * (dt * step_frac)[None]
+    pool[C_TCOLL] = t_coll - step_frac
+    rem_after = torch.where(alive, remaining - step_frac, 0.0)
+    pool[C_REM] = rem_after
+    pool[C_CF] = as_f32(coll_facet)
+    event = alive & (rem_after > _REMAIN_EPS) & (coll_facet >= 0)
+
+    # ---- phase B: the compacted event rows through the narrow machinery -------
+    pidx, n_evt = compact_indices(event, EVT_CAP)
+    frozen = event.sum(dtype=torch.int32) - n_evt  # beyond capacity: frozen
+    vbuf = torch.arange(EVT_CAP, device=dev) < n_evt
+    rows = pool[:, torch.clamp(pidx, max=N - 1).long()]
+    rows_out, ledger, lost_stuck, lost_def, frozen2, swaps = run_event_buffer(
+        rows, vbuf, geo, mat, btab, params, gen, state.T_sv, R8,
+        evt2_cap=EVT_CAP // 16,  # kinetic buffer: survivors are rare
+    )
+    # pidx ascending + unique; its sentinel lanes are dropped
+    scatter_rows(pool, rows_out.contiguous(), pidx)
+
+    state.n_leaving = ledger[:R, 4].to(torch.int32)
+    state.res_energy_balance = state.res_energy_balance - ledger[:R, 0]
+    state.res_heat_flux = state.res_heat_flux + ledger[:R, 1:4]
+    state.lost = state.lost + torch.stack(
+        [torch.zeros_like(lost_stuck), lost_stuck, lost_def]
+    ).to(torch.int32)
+    state.frozen = state.frozen + (frozen + frozen2 + still_stale.sum(dtype=torch.int32)).to(torch.int32)
+    state.kernel_events[2] += swaps
+    return state
 
 
 def run_event_buffer(

@@ -65,7 +65,7 @@ from nanokappa_torch.sim.boundary_tables import (
 )
 from nanokappa_torch.ops.megastep import MAX_CENTERS, MAX_SLICES
 from nanokappa_torch.ops.raycast import raycast
-from nanokappa_torch.sim.cascade import run_event_buffer
+from nanokappa_torch.sim.cascade import run_event_buffer, v1_event_cap
 from nanokappa_torch.sim.reservoir import ReservoirTables, sample_injections
 from nanokappa_torch.sim.scatter import (
     lifetime_by_sv, lifetime_lookup, rta_scatter, slope_pair,
@@ -156,54 +156,93 @@ def pool_layout(geo, btab, params: SimParams, mat) -> str:
     """The pool layout the step runs on (sim/state.py): on the
     specular-mirror path "slim" where the partner is the exact crystal
     mirror (slim_mirror_axis), "full" where it is not or where the k
-    model's split is drawn; "plain" off that path."""
-    if not mirror_eligible(geo, btab, params, mat):
+    model's split is drawn; "plain" off that path and on the v1 step."""
+    if not v2_eligible(geo, params) or not mirror_eligible(geo, btab, params, mat):
         return "plain"
     if kmodel_degen(btab, params) or slim_mirror_axis(geo, btab, mat) is None:
         return "full"
     return "slim"
 
 
-def require_slice(geo, btab, params: SimParams, mat) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item that ports it, for
-    any configuration outside the ported paths: the mirror path (eta = 0
-    walls, slim or full mirror cache), the mirror-off path of kernel A (box
-    or mesh of <= TRI_KERNEL_MAX triangles, rough walls diffusing
-    in-kernel) and its kernel_cast-off path (meshes of <= LARGE_TRI_MAX
-    triangles); on slices (<= MAX_SLICES, nearest or linear temperatures)
-    or grid/voronoi centres (<= MAX_CENTERS, nearest temperatures); the
-    velocity or the k model."""
-    if params.n_shards != 1:
-        raise _todo("particle-axis sharding (multi-GPU)", 12)
-    if not geo.is_box and int(geo.tri_origin.shape[0]) > LARGE_TRI_MAX:
-        raise _todo(
-            f"meshes of more than {LARGE_TRI_MAX} triangles (the v1 step)", 11,
+POOL_TILE_BN = 32768  # the JAX kernels' tile width (nanokappa_tpu/ops/megastep.py BN)
+
+
+def tile_width(n: int) -> int | None:
+    """The JAX package's tile width for an n-wide pool, or None where it has
+    none (nanokappa_tpu/ops/megastep.py tile_width :113): its v2 gate, kept
+    so that both packages route a configuration alike."""
+    if n >= POOL_TILE_BN:
+        return POOL_TILE_BN if n % POOL_TILE_BN == 0 else None
+    if n >= 1024 and (n & (n - 1)) == 0:
+        return n
+    return None
+
+
+def v2_fallback_reason(geo, params: SimParams) -> str | None:
+    """Why this configuration runs the general v1 step (sim/step.py
+    make_step), or None where the fused v2 step takes it: the JAX package's
+    conditions and words (nanokappa_tpu/sim/fused.py v2_eligible :266,
+    v2_fallback_reason :311), save that "auto" takes v2 on the CPU too."""
+    if params.step_impl == "v1":
+        return "step_impl='v1' was requested"
+    F = int(geo.tri_origin.shape[0])
+    if not geo.is_box and F > LARGE_TRI_MAX:
+        return (
+            f"mesh has {F} triangles > the large-mesh fused-step bound "
+            f"LARGE_TRI_MAX={LARGE_TRI_MAX}"
         )
-    if params.temp_interp not in ("nearest", "linear"):
-        raise _todo(f"temp_interp={params.temp_interp!r} (the v1 step)", 11)
     if geo.subvol_type == "slice":
+        if params.temp_interp not in ("nearest", "linear"):
+            return f"temp_interp={params.temp_interp!r} needs the XLA path"
         if geo.n_subvols > MAX_SLICES:
-            raise _todo(f"{geo.n_subvols} slices (the drift kernel takes {MAX_SLICES}; the v1 step)", 11)
-        if params.temp_interp == "linear" and geo.n_subvols < 2:
-            raise ValueError("temp_interp='linear' needs at least 2 slices")
+            return f"{geo.n_subvols} slice subvolumes > the kernel cap {MAX_SLICES}"
     elif geo.subvol_type in ("grid", "voronoi"):
         if params.temp_interp != "nearest":
-            raise _todo(
-                f"temp_interp={params.temp_interp!r} on {geo.subvol_type} subvolumes (the v1 step)", 11,
+            return (
+                f"temp_interp={params.temp_interp!r} on "
+                f"{geo.subvol_type} subvolumes needs the XLA path"
             )
         if geo.n_subvols > MAX_CENTERS:
-            raise _todo(
-                f"{geo.n_subvols} {geo.subvol_type} centres (the drift kernel takes "
-                f"{MAX_CENTERS}; the v1 step)", 11,
-            )
+            return f"{geo.n_subvols} {geo.subvol_type} centres > the kernel cap {MAX_CENTERS}"
     else:
-        raise _todo(f"{geo.subvol_type!r} subvolumes (the v1 step)", 11)
+        return f"subvolume type {geo.subvol_type!r} needs the XLA path"
+    if geo.n_reservoirs > 7:
+        return f"{geo.n_reservoirs} reservoirs > the kernel cap 7"
+    if params.n_cap % params.n_shards != 0 or tile_width(params.n_cap // params.n_shards) is None:
+        return (
+            f"pool capacity {params.n_cap}/{params.n_shards} shards does "
+            f"not align to a kernel tile (ops/megastep.py tile_width)"
+        )
+    return None
+
+
+def v2_eligible(geo, params: SimParams) -> bool:
+    """Does the fused v2 step (make_step_v2) run this configuration? Box
+    geometry or a mesh of at most LARGE_TRI_MAX triangles; slices (nearest
+    or linear T, at most MAX_SLICES) or grid/voronoi centres (nearest T, at
+    most MAX_CENTERS); at most 7 reservoirs; a tile-aligned pool; and
+    step_impl other than "v1". Everything else runs the v1 step."""
+    return v2_fallback_reason(geo, params) is None
+
+
+def require_slice(geo, btab, params: SimParams, mat) -> None:
+    """Raise NotImplementedError, naming the ROADMAP item that ports it, for
+    a configuration neither step of the port runs: several particle shards
+    (item 12), the 'fixed_rate' and 'one_to_one' reservoirs (item 5), and
+    on the fused v2 step more than CMASK_ROWS rough-wall table rows where
+    kernel A reflects diffusely in-kernel (item 10). Every other
+    configuration runs: the v2 step where v2_eligible, the v1 step (sim/
+    step.py make_step) elsewhere."""
+    if params.n_shards != 1:
+        raise _todo("particle-axis sharding (multi-GPU)", 12)
+    if params.temp_interp == "linear" and geo.subvol_type == "slice" and geo.n_subvols < 2:
+        raise ValueError("temp_interp='linear' needs at least 2 slices")
     if geo.n_reservoirs > 0 and params.res_gen not in ("pooled", "constant"):
         raise _todo(f"reservoir_gen={params.res_gen!r}", 5)
-    if geo.n_reservoirs > 7:
-        # the JAX package runs these on its v1 step
-        raise _todo(f"{geo.n_reservoirs} reservoirs (the ledger holds 7; the v1 step)", 11)
-    if btab is not None and int(btab.n_rows) > CMASK_ROWS and dkern_active(geo, btab, params, mat):
+    if (
+        v2_eligible(geo, params) and btab is not None and int(btab.n_rows) > CMASK_ROWS
+        and dkern_active(geo, btab, params, mat)
+    ):
         # the partner bitmask serves in-kernel diffuse reflection only
         raise _todo(f"{btab.n_rows} rough-wall table rows (> {CMASK_ROWS})", 10)
 
@@ -284,9 +323,12 @@ def autosize_evt_cap(geo, mat, params: SimParams, use_mirror: bool, N_shard: int
 
 
 def event_window(geo, mat, btab, params: SimParams) -> int:
-    """EVT_CAP, the event window's width: kernel A's export cap and the tail
-    advance of every step's append (the runner's compaction cadence in
-    sim/step.py is sized from it)."""
+    """EVT_CAP, the event window's width: on the v2 step kernel A's export
+    cap and the tail advance of every step's append (the runner's
+    compaction cadence in sim/step.py is sized from it); on the v1 step the
+    width of its event compaction (sim/cascade.py v1_event_cap)."""
+    if not v2_eligible(geo, params):
+        return v1_event_cap(params)
     return params.evt_cap or autosize_evt_cap(
         geo, mat, params, mirror_eligible(geo, btab, params, mat),
         params.n_cap, btab=btab,

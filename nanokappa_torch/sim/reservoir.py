@@ -311,3 +311,34 @@ def sample_injections(
     rows[C_ALIVE] = 1.0
     rows[C_SV] = 0.0
     return rows, n_valid, new_counter, dropped, props
+
+
+def inject(state, geo: DeviceGeometry, rtab: ReservoirTables, params: SimParams):
+    """The v1 step's injection (nanokappa_tpu/sim/reservoir.py inject :408)
+    on the port's pool discipline: this step's reservoir particles appended
+    at the pool tail, as the v2 step appends them. The port has no free
+    list — dead lanes stay dead until kernel B compacts the pool — so the
+    JAX package's slot order (pops from a free list of dead lanes) is not
+    kept; the lanes a particle occupies are not observable (nothing reads
+    a lane's position in the pool). Updates state.pool, state.tail and
+    state.res_counter in place.
+
+    Returns (stale_idx (inj_cap,) int32: the appended lanes, which the
+    cascade ray-casts, and the pool width N on unused lanes; capacity
+    drops, a host int for lost[0]: the generator's clip plus the particles
+    past the pool's end)."""
+    pool = state.pool
+    N = pool.shape[1]
+    cap = params.inj_cap
+    lane = torch.arange(cap, dtype=torch.int32, device=pool.device)
+    if rtab.n_reservoirs == 0:
+        return torch.full((cap,), N, dtype=torch.int32, device=pool.device), 0
+    rows, n_valid, new_counter, dropped, _ = sample_injections(state.res_counter, geo, rtab, params, state.gen)
+    # the valid rows come first: the lanes that fit are one slice
+    tail = state.tail
+    n_used = max(0, min(n_valid, N - tail))
+    pool[:, tail : tail + n_used] = rows[:, :n_used]
+    state.tail = tail + n_used
+    state.res_counter = new_counter
+    stale = torch.where(lane < n_used, lane + tail, N).to(torch.int32)
+    return stale, dropped + (n_valid - n_used)

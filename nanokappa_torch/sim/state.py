@@ -64,6 +64,9 @@ class SimParams:
     n_shards: int = 1
     tau_dT: float = 0.25  # K of subvolume-temperature drift that triggers
     #   the cached-lifetime refresh on the plain layout
+    step_impl: str = "auto"  # "auto" takes the fused v2 step wherever the
+    #   configuration is eligible (sim/fused.py v2_eligible), the general v1
+    #   step elsewhere; "v1" / "v2" force one (nanokappa_tpu/sim/state.py:57)
 
 
 # pool rows (the JAX package's packed columns, sim/state.py:72-107)

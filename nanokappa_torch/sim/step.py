@@ -1,12 +1,26 @@
-"""The multi-step runner around the fused step.
+"""The general (v1) step and the multi-step runner around either step.
 
-Torch twin of nanokappa_tpu/sim/step.py `build_step` (:269, v2 branch) and
-`make_v2_block_runner` (:347): n_outer blocks of n_inner steps, a lifetime
-refresh gated per block, one ledger reset per block, and the pool
-defragmented (kernel B) whenever the coming sub-block's appends could reach
-the capacity. The JAX package's `lax.cond`s become host `if`s: the tail is a
-host integer, so the compaction test reads nothing from the device; the
-lifetime gate reads one flag per block and each compaction one tail count.
+Torch twin of nanokappa_tpu/sim/step.py `make_step` (:58, the v1 step),
+`build_step` (:269) and `make_v2_block_runner` (:347): n_outer blocks of
+n_inner steps, a lifetime refresh gated per block, one ledger reset per
+block, and the pool defragmented (kernel B) whenever the coming
+sub-block's appends could reach the capacity. `build_step` takes the fused
+v2 step (sim/fused.py make_step_v2) wherever `v2_eligible`, the v1 step
+elsewhere; both run in the same runner. The JAX package's `lax.cond`s
+become host `if`s: the tail is a host integer, so the compaction test reads
+nothing from the device; the lifetime gate reads one flag per block and
+each compaction one tail count.
+
+The v1 step (reference classes/Population.py:1724-1769 run_timestep):
+  1. reservoir injections appended at the pool tail (sim/reservoir.py
+     inject),
+  2. the drift + boundary cascade (sim/cascade.py run_cascade: kernel C
+     compacts the events, kernel D merges them back),
+  3. subvolume binning and the temperature refresh (sim/binning.py
+     bin_all),
+  4. RTA scattering toward the particle temperatures of the new profile
+     (nearest, linear on slices, or the radial RBF), with cached lifetimes.
+It runs on the plain 16-row pool and has no deferred RTA (no finalize).
 """
 
 from __future__ import annotations
@@ -15,9 +29,21 @@ from dataclasses import dataclass, fields
 
 import torch
 
+from nanokappa_torch.constants import EVPSA2_IN_WM2
 from nanokappa_torch.ops.compact_pool import compact_pool
-from nanokappa_torch.sim.fused import event_window, make_step_v2, refresh_tau_T
-from nanokappa_torch.sim.state import TAUB_ROW, SimParams, SimState
+from nanokappa_torch.sim.binning import (
+    bin_all, interp_T_particles, lookup_E_of_T, lookup_T_of_E, particle_energies,
+    subvol_id,
+)
+from nanokappa_torch.sim.cascade import run_cascade
+from nanokappa_torch.sim.fused import (
+    event_window, make_step_v2, refresh_tau_T, require_slice, v2_eligible,
+)
+from nanokappa_torch.sim.reservoir import inject
+from nanokappa_torch.sim.scatter import rta_scatter
+from nanokappa_torch.sim.state import (
+    C_DEV, C_OMEGA, C_POS, C_SV, C_TAU, C_VEL, TAUB_ROW, SimParams, SimState, as_f32,
+)
 
 
 @dataclass
@@ -42,22 +68,90 @@ def stack_outputs(outs: list[StepOutputs]) -> StepOutputs:
     )
 
 
+def make_step(geo, mat, btab, rtab, params: SimParams):
+    """step(state) -> (state, StepOutputs), advancing `state` in place: the
+    fused v2 step where the configuration is eligible (sim/fused.py
+    v2_eligible), else the v1 step."""
+    if v2_eligible(geo, params):
+        return make_step_v2(geo, mat, btab, rtab, params)
+    require_slice(geo, btab, params, mat)
+
+    def step(state: SimState):
+        if state.layout != "plain":
+            raise ValueError(f"the v1 step runs the 'plain' pool, the state is {state.layout!r}")
+        # 1. reservoir injection, 2. drift + boundary cascade
+        stale_idx, lost_inj = inject(state, geo, rtab, params)
+        run_cascade(state, stale_idx, geo, mat, btab, params, state.gen)
+
+        # 3. rebin + refresh temperatures (classes/Population.py:685-728);
+        # the energies are taken against the SUBVOLUME temperature
+        pool = state.pool
+        alive = state.alive
+        pos = pool[C_POS].T
+        sv = subvol_id(geo, pos)
+        energies = particle_energies(
+            pool[C_OMEGA], pool[C_DEV], alive, state.T_sv[sv.long()], params.t_reference,
+        )
+        e_dev_sv, phi, np_sv = bin_all(
+            geo, mat, energies, pool[C_VEL].T, sv, alive,
+            params.energy_normal, params.particle_density,
+        )
+        phi = phi * EVPSA2_IN_WM2
+        E_sv = e_dev_sv + lookup_E_of_T(mat, state.T_sv)
+        T_new = lookup_T_of_E(mat, E_sv)
+
+        # 4. RTA scattering toward the particle temperatures of the new
+        # profile, with the cached lifetimes
+        T_p = interp_T_particles(geo, T_new, pos, sv, params.temp_interp)
+        pool[C_DEV] = rta_scatter(
+            mat, pool[C_DEV], state.mode, pool[C_OMEGA], T_p, alive,
+            params.dt, params.t_reference, tau=pool[C_TAU],
+        )
+        pool[C_SV] = as_f32(sv)
+
+        if lost_inj:  # capacity drops (rare: a host-to-device copy)
+            state.lost = state.lost + torch.tensor([lost_inj, 0, 0], dtype=torch.int32).to(pool.device)
+        state.T_sv = T_new
+        state.Np_sv = np_sv
+        state.step += 1
+        out = StepOutputs(
+            T_sv=T_new,
+            E_sv=E_sv,
+            phi_sv=phi,
+            Np_sv=np_sv,
+            N_p=np_sv.sum(),
+            total_energy=energies.sum(),
+            res_energy_balance=state.res_energy_balance,
+            res_heat_flux=state.res_heat_flux,
+            n_leaving=state.n_leaving,
+            lost=state.lost.sum(),
+            lost_split=state.lost,
+            frozen=state.frozen,
+        )
+        return state, out
+
+    return step
+
+
 def build_step(geo, mat, btab, rtab, params: SimParams, n_inner: int = 1, n_outer: int = 1):
     """run(state) -> (state, outputs): advances n_outer blocks of n_inner
     steps IN PLACE (the returned state is the one passed in). outputs is the
     last step's StepOutputs when n_outer == 1, else one stacked row per
-    block."""
-    step = make_step_v2(geo, mat, btab, rtab, params)
+    block. The step is the fused v2 one where v2_eligible, else v1."""
+    step = make_step(geo, mat, btab, rtab, params)
     return make_v2_block_runner(geo, mat, btab, params, step, n_inner, n_outer)
 
 
 def make_v2_block_runner(geo, mat, btab, params: SimParams, step, n_inner: int, n_outer: int):
-    # Tail-room invariant: each step appends up to EVT_CAP + inj_cap rows at
-    # the tail and only compaction reclaims dead lanes. Sub-blocks of m steps
-    # with m sized so the appends cannot outrun ~N/5 of slack (the wire's
-    # kinetic event window makes m smaller than the film's).
+    # Tail-room invariant: each v2 step appends up to EVT_CAP + inj_cap rows
+    # at the tail, each v1 step inj_cap (its event rows merge in place), and
+    # only compaction reclaims dead lanes. Sub-blocks of m steps with m
+    # sized so the appends cannot outrun ~N/5 of slack (the wire's kinetic
+    # event window makes m smaller than the film's).
     N = params.n_cap
-    per_step = event_window(geo, mat, btab, params) + params.inj_cap
+    per_step = params.inj_cap
+    if v2_eligible(geo, params):
+        per_step += event_window(geo, mat, btab, params)
     m = max(1, min(n_inner, (N // 5) // max(1, per_step)))
     while n_inner % m:  # largest divisor of n_inner <= the safe bound
         m -= 1

@@ -1,12 +1,14 @@
 """Where the port's step spends its time on the card.
 
-    python scripts/torch_profile_step.py [film|kfilm0|wire|bigmesh|plate]     # default: film
+    python scripts/torch_profile_step.py [film|kfilm0|wire|bigmesh|plate|star]     # default: film
 
 Builds the film (pooled reservoirs), the film under the k model (`kfilm0`:
 the eta = 0 bench film on the full 24-row mirror layout), the nanowire, the
 large mesh (the 96-sided cylinder) or the perforated plate (its STL written
 to a temporary folder, Voronoi 8 subvolumes; all three 'constant'
-reservoirs) exactly as chip_smoke.py does, warms up two runs of
+reservoirs) exactly as chip_smoke.py does, or the star
+(examples/voronoi_star.txt on the v1 step, built by `Simulation` from
+chip_smoke.py's arguments, its results folder temporary), warms up two runs of
 n_inner = 10 steps, then records one more run with torch.profiler (CPU and
 CUDA activities). Prints the step's wall time, the device's busy share
 (summed kernel time over the wall time of the window), the launches per
@@ -35,7 +37,7 @@ def main() -> None:
         raise SystemExit("torch_profile_step: needs a CUDA card")
     from chip_smoke import (
         BIGMESH, FILM, MESH, PARTICLES, PLATE, SEED, WIRE, build_ctx, card_line,
-        perforated_plate, run_params,
+        perforated_plate, run_params, star_argv,
     )
     from nanokappa_torch.material import synthetic_material
     from nanokappa_torch.sim.state import init_state
@@ -52,14 +54,23 @@ def main() -> None:
         stl_path = os.path.join(tempfile.mkdtemp(prefix="profile_plate_"), "plate.stl")
         stl.save_stl(perforated_plate(), stl_path)
         configs["plate"] = (dict(PLATE, geometry=stl_path), "constant")
-    domain_kw, res_gen = configs[config]
     device = torch.device("cuda:0")
     mat = synthetic_material(mesh=(MESH, MESH, MESH))
-    scat = "k" if config == "kfilm0" else "velocity"
-    dom, geo, btab = build_ctx(mat, domain_kw, device, scat)
-    n_p, rtab, params = run_params(mat, dom, PARTICLES, res_gen, device)
-    params = dataclasses.replace(params, scat_model=scat)
-    state = init_state(mat, dom, geo, params, n_p, btab, temp_dist="linear", seed=SEED)
+    if config == "star":
+        import tempfile
+
+        from nanokappa_torch.driver import Simulation
+        from nanokappa_torch.io.config import read_args
+
+        sim = Simulation(read_args(star_argv(tempfile.mkdtemp(prefix="profile_star_"), device)), material=mat)
+        geo, btab, rtab, params, state = sim.geo, sim.btab, sim.rtab, sim.params, sim.state
+    else:
+        domain_kw, res_gen = configs[config]
+        scat = "k" if config == "kfilm0" else "velocity"
+        dom, geo, btab = build_ctx(mat, domain_kw, device, scat)
+        n_p, rtab, params = run_params(mat, dom, PARTICLES, res_gen, device)
+        params = dataclasses.replace(params, scat_model=scat)
+        state = init_state(mat, dom, geo, params, n_p, btab, temp_dist="linear", seed=SEED)
     run = build_step(geo, mat.device_tables(device), btab, rtab, params, n_inner=STEPS)
     for _ in range(2):
         state, _ = run(state)

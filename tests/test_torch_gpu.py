@@ -550,3 +550,58 @@ def test_cuda_megastep_linear_T_extrapolates(cuda, layout):
     T_sv = torch.tensor([301.5, 300.5, 300.2, 299.1, 298.4], device=cuda)
     for rta_on in (False, True):
         _kernel_vs_twin(pool, T_sv, cfg, seed=37, rta_on=rta_on)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,e,nval", [(40_000, 4096, 2000), (16_384, 1024, 1024), (20_000, 512, 0), (50_000, 2048, 2048)])
+def test_cuda_scatter_rows_matches_plain(cuda, n, e, nval):
+    from nanokappa_torch.ops import scatter_rows as sr
+    from torch_parity import scatter_case
+
+    pool, rows, idx = (torch.as_tensor(x) for x in scatter_case(n, e, nval))
+    before = sr.launches
+    out = sr.scatter_rows(pool.to(cuda), rows.to(cuda), idx.to(cuda))
+    assert sr.launches == before + 1
+    ref = sr.scatter_rows_plain(pool.clone(), rows, idx)
+    assert torch.equal(_bits(out), _bits(ref))
+
+
+@pytest.mark.gpu
+def test_cuda_star_v1_step_matches_cpu(cuda, monkeypatch):
+    """The star (examples/voronoi_star.txt's domain: radial temperatures, so
+    the v1 step) on the card against the CPU from one initial state, 4
+    steps: T_sv within 0.1 K (the card's and the CPU's random streams
+    differ), nothing lost; kernels C and D launched on the card."""
+    from nanokappa_torch.geometry.device import build_device_geometry
+    from nanokappa_torch.geometry.domain import build_domain
+    from nanokappa_torch.material import synthetic_material
+    from nanokappa_torch.ops import compact, scatter_rows
+    from nanokappa_torch.sim.boundary_tables import build_boundary_tables
+    from nanokappa_torch.sim.fused import v2_eligible
+    from nanokappa_torch.sim.reservoir import autosize_c_max, build_reservoir_tables
+    from nanokappa_torch.sim.state import SimParams, init_state, particle_count
+    from nanokappa_torch.sim.step import build_step
+    from torch_parity import STAR, STAR_CENTERS, patch_lloyd
+
+    patch_lloyd(monkeypatch, STAR_CENTERS, equal_volumes=True)
+    dom = build_domain(**STAR)
+    mat = synthetic_material(mesh=(6, 6, 6))
+    n_p, rho = particle_count(("total", 3000), mat, dom)
+    outs = []
+    for d in (torch.device("cpu"), cuda):
+        rtab = build_reservoir_tables(mat, dom, 1.0, rho, device=d)
+        params = SimParams(
+            dt=1.0, n_cap=4096, inj_cap=512, c_max=autosize_c_max(rtab), temp_interp="radial",
+            res_gen="constant", particle_density=rho, n_active_modes=mat.n_active_modes, t_reference=300.0,
+        )
+        geo = build_device_geometry(dom, d)
+        assert not v2_eligible(geo, params)
+        btab = build_boundary_tables(mat, dom, device=d)
+        state = init_state(mat, dom, geo, params, n_p, btab, temp_dist="linear", seed=4)
+        n_c, n_d = compact.launches, scatter_rows.launches
+        _, out = build_step(geo, mat.device_tables(d), btab, rtab, params, n_inner=1, n_outer=4)(state)
+        outs.append(out)
+    assert compact.launches > n_c and scatter_rows.launches == n_d + 4
+    a, b = outs
+    np.testing.assert_allclose(b.T_sv.cpu().numpy(), a.T_sv.numpy(), atol=0.1)
+    assert int(a.lost[-1]) == 0 and int(b.lost[-1]) == 0

@@ -79,10 +79,7 @@ def test_plate_step_matches_jax_v1(plate, monkeypatch):
     assert dkern_active(geo, btab, params, tabs) and not mirror_eligible(geo, btab, params, tabs)
 
     state = init_state(mat, dom, geo, params, n_p, btab, temp_dist="linear", seed=4)
-    d = state_to_jax(state)
-    dead = np.nonzero(np_(state.pool[14]) < 0.5)[0].astype(np.int32)
-    d["free_list"][: len(dead)] = dead  # the v1 step injects into free slots
-    d["free_count"] = np.array([len(dead)], np.int32)
+    d = state_to_jax(state, v1=True)  # the v1 step injects into free slots
     js = JState(**{k: jax.numpy.asarray(v) for k, v in d.items()}, key=jax.random.PRNGKey(4))
     run = build_step(geo, tabs, btab, rtab, params, n_inner=1, n_outer=4)
     _, out = run(state)

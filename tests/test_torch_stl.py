@@ -59,14 +59,19 @@ def test_imported_stl_runs(tmp_path):
 @pytest.mark.parametrize("n_side", [16400])
 def test_meshes_beyond_kernel_e_raise(n_side):
     """65,600 triangles: beyond kernel E's 512 chunks, the v1 step's
-    territory (ROADMAP item 11)."""
+    territory (ROADMAP item 11, ported: such a mesh no longer raises, it
+    runs the v1 step, with the JAX package's reason)."""
     from types import SimpleNamespace
 
     import torch
 
-    from nanokappa_torch.sim.fused import require_slice
+    from nanokappa_torch.sim.fused import require_slice, v2_fallback_reason
     from nanokappa_torch.sim.state import SimParams
 
-    geo = SimpleNamespace(is_box=False, tri_origin=torch.zeros(4 * n_side, 3))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        require_slice(geo, None, SimParams(dt=1.0, n_cap=1024, inj_cap=8), None)
+    geo = SimpleNamespace(is_box=False, tri_origin=torch.zeros(4 * n_side, 3), n_reservoirs=2,
+                          subvol_type="slice", n_subvols=5)
+    params = SimParams(dt=1.0, n_cap=1024, inj_cap=8)
+    require_slice(geo, None, params, None)
+    assert v2_fallback_reason(geo, params) == (
+        "mesh has 65600 triangles > the large-mesh fused-step bound LARGE_TRI_MAX=65536"
+    )

@@ -250,14 +250,20 @@ def _gate_geo(**kw):
         "reservoirs8", "triangles65537", "fixed_rate", "one_to_one", "shards2"])
 def test_require_slice_names_the_item(geo_kw, params_kw, item):
     """The configurations the port still refuses raise NotImplementedError
-    naming the ROADMAP item that ports them."""
-    from nanokappa_torch.sim.fused import require_slice
+    naming the ROADMAP item that ports them; those of item 11 (the v1 step,
+    ported) are admitted and routed to the v1 step."""
+    from nanokappa_torch.sim.fused import require_slice, v2_eligible
     from nanokappa_torch.sim.state import SimParams
 
     params = SimParams(dt=1.0, n_cap=4096, inj_cap=512, temp_interp="nearest", res_gen="pooled")
     params = dataclasses.replace(params, **params_kw)
+    geo = _gate_geo(**geo_kw)
+    if item == 11:
+        require_slice(geo, None, params, None)
+        assert not v2_eligible(geo, params)
+        return
     with pytest.raises(NotImplementedError, match=rf"item {item}\b"):
-        require_slice(_gate_geo(**geo_kw), None, params, None)
+        require_slice(geo, None, params, None)
 
 
 @pytest.mark.parametrize("geo_kw, params_kw", [

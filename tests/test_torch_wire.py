@@ -177,17 +177,22 @@ def test_constant_positions_cover_the_caps_by_area(wire):
 def test_configs_outside_the_ported_paths_raise(wire, change, item, monkeypatch):
     """Every configuration the port does not run yet raises, naming the
     ROADMAP item that ports it (a k-model configuration on the mirror path:
-    the wire's walls are not, so the gate is forced)."""
+    the wire's walls are not, so the gate is forced); those of item 11 (the
+    v1 step, ported) are admitted and routed to the v1 step."""
     import dataclasses
 
     from nanokappa_torch.sim import fused
-    from nanokappa_torch.sim.fused import require_slice
+    from nanokappa_torch.sim.fused import require_slice, v2_eligible
 
     _, t = wire
     geo = dataclasses.replace(t.geo, **change.get("geo", {}))
     params = dataclasses.replace(t.params, **change.get("params", {}))
     if change.get("mirror"):
         monkeypatch.setattr(fused, "mirror_eligible", lambda *a, **k: True)
+    if item == 11:
+        require_slice(geo, t.btab, params, t.tabs)
+        assert not v2_eligible(geo, params)
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         require_slice(geo, t.btab, params, t.tabs)
 

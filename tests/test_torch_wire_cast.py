@@ -70,15 +70,22 @@ def test_raycast_matches_jax(sides):
 
 def test_raycast_beyond_256_triangles_raises():
     """Beyond 256 triangles the dispatch takes kernel E; beyond its 512
-    chunks (65,536 triangles) the cast raises, naming ROADMAP item 11."""
+    chunks (65,536 triangles) it took ROADMAP item 11's raise, and now
+    takes the v1 step's chunked dense cast (no raise): the wire's 32
+    triangles tiled to 65,568 give the wire's own hits (a tie across
+    chunks keeps the earlier triangle)."""
     import dataclasses
 
     from nanokappa_torch.geometry.device import build_device_geometry
     from nanokappa_torch.geometry.domain import build_domain
     from nanokappa_torch.ops.raycast import raycast
 
-    geo = build_device_geometry(build_domain(**WIRE), device="cpu")
-    geo = dataclasses.replace(geo, tri_origin=torch.zeros((65537, 3)))
-    z = torch.zeros((4, 3))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        raycast(geo, z, z, torch.zeros(4, dtype=torch.int32))
+    dom = build_domain(**WIRE)
+    geo = build_device_geometry(dom, device="cpu")
+    reps = 65568 // 32
+    big = dataclasses.replace(geo, **{k: getattr(geo, k).repeat((reps,) + (1,) * (getattr(geo, k).dim() - 1))
+                                      for k in ("tri_origin", "tri_e1", "tri_e2", "tri_facet")})
+    pos, vel, exclude = (torch.as_tensor(x) for x in _rays(dom, 64, seed=5))
+    t, f = raycast(big, pos, vel, exclude)
+    want_t, want_f = raycast(geo, pos, vel, exclude)
+    assert torch.equal(t, want_t) and torch.equal(f, want_f)

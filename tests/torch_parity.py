@@ -77,6 +77,28 @@ def perforated_plate(L=3e3, W=3e3, H=1e3, a=600.0):
     return TriMesh(v, np.array(faces))
 
 
+# examples/voronoi_star.txt's domain: a 6-point star prism 5000 A long
+# (outer radius 800 A, inner 400 A; 48 triangles, 14 facets), T caps at
+# 305 / 295 K, rough eta = 2 A side walls, 12 Voronoi cells
+STAR = dict(
+    geometry="star",
+    dimensions=(5e3, 800.0, 400.0, 6),
+    subvolumes=("voronoi", 12),
+    bound_pos=("relative", 0.5, 0.5, -0.1, 0.5, 0.5, 1.1, 1.1, 0.5, 0.5),
+    bound_cond=("T", "T", "R", "R"),
+    bound_values=(305.0, 295.0, 2.0, 2.0),
+    connect_pos=("relative",),
+)
+# the star's 12 Lloyd centres (seed 0), rounded: its Lloyd iteration costs
+# ~100 s of CPU
+STAR_CENTERS = np.array([
+    [519.9, 693.9, 2013.8], [630.2, 469.9, 1139.5], [648.7, 460.1, 3015.4],
+    [651.8, 906.8, 374.7], [675.2, 935.8, 4562.7], [772.2, 611.7, 3875.6],
+    [912.3, 948.5, 1149.2], [912.7, 928.0, 3333.4], [936.8, 801.7, 2538.3],
+    [939.3, 473.9, 4611.0], [959.1, 476.6, 398.3], [1057.1, 621.9, 1807.3],
+])
+
+
 def plate_kw(path: str) -> dict:
     """The plate's domain: Voronoi 8, T reservoirs at 304 / 296 K on the two
     x faces, every other facet rough at eta = 5 A (the hole's walls too)."""
@@ -97,16 +119,26 @@ PLATE_CENTERS = np.array([
 ])
 
 
-def patch_lloyd(monkeypatch, centers=PLATE_CENTERS):
-    """Both packages' Voronoi splits take `centers` (no Lloyd run)."""
-    from nanokappa_torch.geometry import subvolumes as t_sub
+def patch_lloyd(monkeypatch, centers=PLATE_CENTERS, equal_volumes=False):
+    """Both packages' Voronoi splits take `centers` (no Lloyd run); with
+    `equal_volumes` each cell takes an equal share of the mesh's volume (no
+    Monte Carlo volume estimate)."""
+    from nanokappa_torch.geometry import domain as t_dom, subvolumes as t_sub
 
-    monkeypatch.setattr(t_sub, "lloyd_centers", lambda mesh, n, rng=None, **k: centers[:n].copy())
+    def vols(mesh, c, rng=None, **k):
+        return np.full(len(c), mesh.volume / len(c))
+
+    mods = [(t_sub, t_dom)]
     try:
-        from nanokappa_tpu.geometry import subvolumes as j_sub
+        from nanokappa_tpu.geometry import domain as j_dom, subvolumes as j_sub
+
+        mods.append((j_sub, j_dom))
     except ImportError:
-        return
-    monkeypatch.setattr(j_sub, "lloyd_centers", lambda mesh, n, rng=None, **k: centers[:n].copy())
+        pass
+    for sub, dom in mods:
+        monkeypatch.setattr(sub, "lloyd_centers", lambda mesh, n, rng=None, **k: centers[:n].copy())
+        if equal_volumes:
+            monkeypatch.setattr(dom, "_mc_subvol_volume", vols)
 
 
 def jax_fields(obj) -> dict:
@@ -265,3 +297,23 @@ def split_share(state, btab, mat_tables) -> tuple[int, int]:
     partnered = (corr >= 0) & (dp[np.clip(corr, 0, None)] >= 0)
     took = partnered & (xmode == dp[np.clip(corr, 0, None)])
     return int(partnered.sum()), int(took.sum())
+
+
+# the four shapes of tests/test_scatter_rows.py (N, E, valid updates)
+SCATTER_CASES = [(40_000, 4096, 2000), (16_384, 1024, 1024), (20_000, 512, 0), (50_000, 2048, 2048)]
+
+
+def scatter_case(n, e, nval, C=16, seed=0):
+    """A (C, n) bit-hazard pool, (C, e) rows and the case's ascending unique
+    indices (the dense case clustered at 20,000), sentinel n beyond nval."""
+    rng = np.random.default_rng(seed + n)
+    pool = rng.normal(size=(C, n)).astype(np.float32)
+    pool.view(np.int32)[[9, 10, 12, 15]] = rng.integers(-2, 300, (4, n))
+    rows = rng.normal(size=(C, e)).astype(np.float32)
+    rows.view(np.int32)[[9, 10, 12, 15]] = rng.integers(-2, 300, (4, e))
+    idx = np.full(e, n, np.int32)
+    if nval == 2048 and n == 50_000:
+        idx[:nval] = 20_000 + np.arange(nval)
+    elif nval:
+        idx[:nval] = np.sort(rng.choice(n, nval, replace=False))
+    return pool, rows, idx
