@@ -15,7 +15,14 @@ Needs one CUDA card. In order it:
      lattice's width and at the survivor widths — and times each beside
      its twin, one PyTorch call computing the same function where there is
      one, and its bound (the larger of its bytes over 3.35 TB/s and its
-     operations over 67 TFLOP/s of float32),
+     operations over 67 TFLOP/s of float32); every kernel by its device
+     time (device_timed: the calls enqueued behind a spin kernel, so the
+     CUDA events time their kernels back to back) and, printed beside it,
+     by calls back to back (which include the wrapper's host work where
+     that is the longer); every kernel A check also runs two launches on
+     one pool (bit for bit alike) and prints its pool's divergence shares
+     (lanes whose flight ends at a wall this step, and the 32-lane warps
+     holding one),
   4. checks a small film and a small closed wire on the card against the
      plain path on the CPU,
   5. drives the film (pooled reservoirs) and the nanowire ('constant'
@@ -59,7 +66,8 @@ Needs one CUDA card. In order it:
      physics and its result files, then holds kernel E (on the run's
      1,277,952-lane pool, at the injection width and at the event width)
      and the cast-off branch of kernel A against their twins on that
-     context (kernel E also at the narrow rounds' width),
+     context (kernel E also at the narrow rounds' width, each width at
+     its launch shape, G threads a ray),
  10. drives the star (examples/voronoi_star.txt as written: a 6-point
      star, 12 Voronoi cells, radial temperatures, so the v1 step) through
      the driver entry for 500 steps at 10^6 particles, with the counters
@@ -69,7 +77,10 @@ Needs one CUDA card. In order it:
      the lanes the next drift stops at a facet, rows perturbed; and on a
      sentinel-only buffer) and kernel C at the v1 width (1,277,952 ->
      79,872) against their twins, timed beside `index_copy_` and
-     `torch.nonzero` + fill.
+     `torch.nonzero` + fill,
+ 11. splits each kernel A check's call by kernel name (torch.profiler),
+     last: a profiler session can leave hooks that add host time to every
+     later launch, and the main paths are host-bound.
 Any failed check raises (non-zero exit). The last lines are the card line,
 one JSON line with the kernels' numbers, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -203,6 +214,26 @@ def timed(fn, x, n: int) -> float:
     return a.elapsed_time(b) / n
 
 
+def device_timed(fn, n: int = 20) -> float:
+    """Mean milliseconds of device time per call of fn(), over n calls
+    between one pair of CUDA events: a spin kernel (torch.cuda._sleep,
+    ~2 ms a call) holds the card while the calls are enqueued, so the
+    events time their kernels back to back, without the host's gaps."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(4_000_000 * n)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     """(bound_ms, bound_by): the least time the card could take."""
     t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOP_PER_S
@@ -284,9 +315,75 @@ def with_fresh(pool, device, frac=0.01, seed=7):
     return pool_c
 
 
+def divergence(pool, cfg) -> tuple[float, float]:
+    """(lane share, warp share) of a pool before kernel A's launch: the
+    alive lanes whose flight ends at a wall in this step (C_TCOLL <= the
+    remaining fraction, or fresh: the kernel casts them), and the 32-lane
+    warps that hold at least one (each such warp runs the cast and the
+    event rounds)."""
+    import torch
+
+    from nanokappa_torch.sim.state import C_ALIVE, C_CF, C_REM, C_TCOLL, STALE
+
+    alive = pool[C_ALIVE] > 0.5
+    rem = torch.where(pool[C_REM] > 1e-5, pool[C_REM], 1.0)
+    t = pool[C_TCOLL]
+    if cfg.kernel_cast:
+        fresh = pool[C_CF].contiguous().view(torch.int32) == STALE
+    else:
+        fresh = t < -0.5
+        t = torch.where(fresh, -t - 1.0, t)
+    ends = alive & (fresh | (t <= rem))
+    n = ends.shape[0] // 32 * 32
+    return float(ends.float().mean()), float(ends[:n].reshape(-1, 32).any(dim=1).float().mean())
+
+
+def launch_split(fn, calls: int = 10) -> dict[str, float]:
+    """Mean device microseconds per call of fn, by kernel name
+    (torch.profiler); PyTorch's own kernels (the wrapper's output fills)
+    under "torch". The profiler on the card at times records no kernel
+    (an empty split): the times come from device_timed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        t = getattr(e, "cuda_time_total", 0.0) if t is None else t
+        name = "torch" if "at::" in e.key else kernel_name(e.key)
+        if t > 0 and name and not name.startswith(("Memcpy", "Memset")):
+            out[name] = round(out.get(name, 0.0) + t / calls, 2)
+    return out
+
+
+def kernel_name(key: str) -> str:
+    """A profiler kernel key without its return type, namespaces, template
+    arguments and parameters: 'void (anonymous namespace)::mega_lanes<...>(...)'
+    -> 'mega_lanes'."""
+    k = key.replace("(anonymous namespace)::", "")
+    k = k[5:] if k.startswith("void ") else k
+    k = k.split("<")[0].split("(")[0]
+    return k.rsplit("::", 1)[-1].strip()
+
+
+def same_bits(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
 def check_megastep(name, pool_c, T_sv, cfg, seed, source_ops):
-    """Kernel A against its twin on one pool (both RTA flags), timed; the
-    record for the JSON line (launches filled in later)."""
+    """Kernel A against its twin on one pool (both RTA flags), two launches
+    on copies of the pool bit for bit alike, timed, and its pool's
+    divergence shares; the record for the JSON line (launches filled in
+    later), with `split`, the call to split by kernel name once every main
+    path has run (split_launches)."""
     import torch
 
     from nanokappa_torch.ops import megastep
@@ -315,8 +412,21 @@ def check_megastep(name, pool_c, T_sv, cfg, seed, source_ops):
         check_close(f"{name} bins", ok_[4], op_[4], 1e-5, 2.0 * abs_bins(pp, T_sv, cfg))
         print(f"  {name} rta={rta_on}: counts {op_[2].tolist()} "
               f"(pending, alive, kept, diffused, flagged)", flush=True)
-    # timed as the main path calls it: successive drift steps on one pool
-    ms = timed(lambda p: megastep.drift_megastep(p, T_sv, True, cfg, seed=seed), pool_c.clone(), 20)
+    # the sums' order is fixed: two launches give the same bits everywhere
+    a, b = pool_c.clone(), pool_c.clone()
+    ra = megastep.drift_megastep(a, T_sv, True, cfg, seed=seed)
+    rb = megastep.drift_megastep(b, T_sv, True, cfg, seed=seed)
+    if not (same_bits(a, b) and all(same_bits(x, y) for x, y in zip(ra, rb))):
+        raise AssertionError(f"{name}: two launches on one pool differ")
+    del a, b, ra, rb
+    lane, warp = divergence(pool_c, cfg)
+    # timed as the main path calls it, successive drift steps on one pool:
+    # the device time, and the calls' rate between CUDA events (the
+    # wrapper's host work included where it is the longer)
+    p_time = pool_c.clone()
+    ms = device_timed(lambda: megastep.drift_megastep(p_time, T_sv, True, cfg, seed=seed))
+    del p_time
+    event_ms = timed(lambda p: megastep.drift_megastep(p, T_sv, True, cfg, seed=seed), pool_c.clone(), 20)
     plain_ms = timed(lambda p: megastep.drift_megastep_plain(p, T_sv, True, cfg, seed=seed), pool_c.clone(), 3)
     C, N = pool_c.shape
     n_alive = int((pool_c[C_ALIVE] > 0.5).sum())
@@ -332,12 +442,25 @@ def check_megastep(name, pool_c, T_sv, cfg, seed, source_ops):
     nb = -(-N // 256)
     print(f"  {name}: {cfg.sv} subvolumes (mode {cfg.sv_mode}), pool {C} x {N}, bytes "
           f"{n_bytes / 1e6:.1f} MB, operations {n_ops / 1e9:.3f} G, partial sums "
-          f"{nb * (2 * cfg.sv8 + R8) * 5 * 4 / 1e6:.1f} MB each way", flush=True)
+          f"{nb * (2 * cfg.sv8 + R8) * 5 * 4 / 1e6:.1f} MB each way; two launches bit-equal; "
+          f"lanes ending at a wall {lane:.4f}, warps holding one {warp:.4f}", flush=True)
     return dict(
         name=name, route="cuda", source="nanokappa_torch/csrc/megastep.cu",
         replaces="nanokappa_tpu/ops/megastep.py:1358", max_abs_err=err, match=how,
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        lane_share=lane, warp_share=warp, event_ms=event_ms,
+        split=lambda: megastep.drift_megastep(pool_c.clone(), T_sv, True, cfg, seed=seed),
     )
+
+
+def split_launches(recs) -> None:
+    """Each kernel A record's call split by kernel name (launch_split),
+    printed; run after every main path and every timing, since a profiler
+    session may leave hooks that add host time to later launches."""
+    for r in recs:
+        if "split" in r:
+            r["split_us"] = launch_split(r.pop("split"))
+            print(f"  {r['name']}: launch split (us) {r['split_us']}", flush=True)
 
 
 def check_compact_pool(pools, name="compact_pool"):
@@ -366,7 +489,8 @@ def check_compact_pool(pools, name="compact_pool"):
     return dict(
         name=name, route="cuda", source="nanokappa_torch/csrc/compact_pool.cu",
         replaces="nanokappa_tpu/ops/compact_pool.py:186", max_abs_err=0.0, match="bit-exact",
-        ms=timed(lambda p: compact_pool.compact_pool(p, out), pool, 20),
+        ms=device_timed(lambda: compact_pool.compact_pool(pool, out)),
+        event_ms=timed(lambda p: compact_pool.compact_pool(p, out), pool, 20),
         plain_ms=timed(lambda p: compact_pool.compact_pool_plain(p, out), pool, 5),
         bound_ms=b_ms, bound_by=b_by, library_ms=timed(library, pool, 5),
     )
@@ -397,7 +521,8 @@ def check_compact(name, masks, cap):
     return dict(
         name=name, route="cuda", source="nanokappa_torch/csrc/compact.cu",
         replaces="nanokappa_tpu/ops/compact.py:77", max_abs_err=0.0, match="bit-exact",
-        ms=timed(lambda m: compact.compact_indices(m, cap), masks[0], 50),
+        ms=device_timed(lambda: compact.compact_indices(masks[0], cap)),
+        event_ms=timed(lambda m: compact.compact_indices(m, cap), masks[0], 50),
         plain_ms=timed(lambda m: compact.compact_indices_plain(m, cap), masks[0], 50),
         bound_ms=b_ms, bound_by=b_by, library_ms=timed(library, masks[0], 50),
     )
@@ -1052,7 +1177,8 @@ def check_scatter_rows(sim, device):
     rec_d = dict(
         name="scatter_rows[star events]", route="cuda", source="nanokappa_torch/csrc/scatter_rows.cu",
         replaces="nanokappa_tpu/ops/scatter_rows.py:123", max_abs_err=err, match="bit-exact",
-        ms=timed(lambda p: sr.scatter_rows(p, rows, pidx), target, 50),
+        ms=device_timed(lambda: sr.scatter_rows(target, rows, pidx)),
+        event_ms=timed(lambda p: sr.scatter_rows(p, rows, pidx), target, 50),
         plain_ms=timed(lambda p: sr.scatter_rows_plain(p, rows, pidx), target, 20),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=timed(lambda p: p.index_copy_(1, pv, rv), target, 50),
@@ -1093,31 +1219,36 @@ def v1_film(mat, f_dom, f_geo, f_btab, f_rtab, f_params, f_np, tabs, T_v2):
 
 def check_raycast_large(name, geo, pos, vel, ex):
     """Kernel E against its twin on one set of rays: t and facet bit for
-    bit (0 mismatched lanes); timed, with its bound from the chunks the
-    blocks solved."""
+    bit (0 mismatched lanes) at its launch shape (G threads per ray, one ray
+    per thread); timed, with its bound from the chunks reached per group of
+    256 rays (the twin's reach test: the same work whatever G is)."""
     import torch
 
     from nanokappa_torch.ops import raycast_large as rl
 
     tabs = rl.prep(geo)
     n = pos.shape[0]
-    solved = torch.zeros(-(-n // rl.LANE_BLOCK), dtype=torch.int32, device=pos.device)
-    tk, fk = rl.raycast_large(geo, pos, vel, ex, solved=solved)
-    tp, fp = rl.raycast_large_plain(tabs, pos, vel, ex)
+    tp, fp, reach = rl.raycast_large_plain(tabs, pos, vel, ex, reach=True)
+    g0 = rl.launch_shape(n)
+    tk, fk = rl.raycast_large(geo, pos, vel, ex)
     torch.cuda.synchronize()
     bad = int(((tk.view(torch.int32) != tp.view(torch.int32)) | (fk != fp)).sum())
     if bad:
-        raise AssertionError(f"{name}: {bad} of {n} lanes differ from the twin")
-    pairs = int(solved.sum()) * rl.LANE_BLOCK * rl.BF
-    n_bytes = n * (3 + 3 + 1) * 4 + n * 8 + int(solved.sum()) * rl.TAB_ROWS * rl.BF * 4
+        raise AssertionError(f"{name} at G = {g0}: {bad} of {n} lanes differ from the twin")
+    ms = device_timed(lambda: rl.raycast_large(geo, pos, vel, ex))
+    reached = rl.chunks_reached(reach)
+    pairs = reached * rl.BOUND_GROUP * rl.BF
+    n_bytes = n * (3 + 3 + 1) * 4 + n * 8 + reached * rl.TAB_ROWS * rl.BF * 4
     b_ms, b_by = bound(n_bytes, pairs * rl.OPS_PER_PAIR)
-    hits = int((fk >= 0).sum())
-    print(f"  {name}: {n} rays, {hits} hits, chunks solved per block "
-          f"{float(solved.float().mean()):.3f} of {tabs.nc}, 0 mismatched lanes", flush=True)
+    hits = int((fp >= 0).sum())
+    groups = -(-n // rl.BOUND_GROUP)
+    event_ms = timed(lambda r: rl.raycast_large(geo, *r), (pos, vel, ex), 20)
+    print(f"  {name}: {n} rays, {hits} hits, chunks reached per 256 rays {reached / groups:.3f} of "
+          f"{tabs.nc}, 0 mismatched lanes; (G, R) = ({g0}, 1)", flush=True)
     return dict(
         name=name, route="cuda", source="nanokappa_torch/csrc/raycast_large.cu",
         replaces="nanokappa_tpu/ops/raycast_pallas.py:292", max_abs_err=0.0, match="bit-exact",
-        ms=timed(lambda r: rl.raycast_large(geo, *r), (pos, vel, ex), 20),
+        ms=ms, shape=(g0, 1), event_ms=event_ms,
         plain_ms=timed(lambda r: rl.raycast_large_plain(tabs, *r), (pos, vel, ex), 3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
@@ -1276,7 +1407,7 @@ def main(device=None) -> None:
     lattice = counts[None, :] > torch.arange(w_params.c_max, device=device)[:, None]
     recs["lattice"] = check_compact("compact_indices[lattice]", [lattice.reshape(-1)], w_params.inj_cap)
     for r in list(recs.values()) + off_path:
-        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms (calls back to back {r['event_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms'] and round(r['library_ms'], 4)} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']:.3g} "
               f"({r['match']})", flush=True)
@@ -1432,7 +1563,7 @@ def main(device=None) -> None:
     torch.cuda.empty_cache()
     for r in [recs[k] for k in ("film_linear", "film_centre256", "kfilm0", "pool_full", "kfilm_linear",
                                 "plate")] + full_off:
-        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms (calls back to back {r['event_ms']:.4f}), plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']:.3g} "
               f"({r['match']})", flush=True)
 
@@ -1444,7 +1575,8 @@ def main(device=None) -> None:
     recs.update(bigmesh_kernel_checks(sim, device))
     for k in ("E_pool", "E_inj", "E_evt", "E_narrow", "castoff"):
         r = recs[k]
-        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+        shape = f", (G, R) = {r['shape']}" if "shape" in r else ""
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms{shape} (calls back to back {r['event_ms']:.4f}), plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']:.3g} "
               f"({r['match']})", flush=True)
     print(f"large-mesh kernel checks passed in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1457,10 +1589,12 @@ def main(device=None) -> None:
     checks.update(s_checks)
     recs["D"], recs["C_v1"] = check_scatter_rows(sim, device)
     for r in (recs["D"], recs["C_v1"]):
-        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms (calls back to back {r['event_ms']:.4f}), plain {r['plain_ms']:.4f} ms, library "
               f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
               f"{r['max_abs_err']:.3g} ({r['match']})", flush=True)
     shutil.rmtree(sim_dir, ignore_errors=True)
+    # ---- kernel A's launch splits, after every main path and timing -----------
+    split_launches(list(recs.values()) + off_path + full_off)
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise SystemExit(f"chip_smoke: failed checks: {failed}")

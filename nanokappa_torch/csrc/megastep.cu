@@ -24,21 +24,41 @@
 // one reads C_TCOLL < -1.5 as "already flagged" and the two encodings
 // collide. The full mirror keeps six more floats than the slim one live
 // across the rounds (the partner's omega, velocity, intercept and slope);
-// it runs on the box and triangle casts (21 instantiations in all). The
-// centre table [x, y, z, |c|^2] (centre mode), the facet
-// table, the triangle table, T_sv and the lifetime grid are staged in
-// shared memory per block; the diffuse tables (diff2, omega_vel, |k|^2, the
-// partner bitmask, the lifetime table) are gathered from global memory
-// (they fit in the 50 MB L2) at a rough-wall hit only. The nearest-centre
-// loop walks every centre (up to 256) twice per lane — before and after
-// the drift — keeping the first minimum of |c|^2 - 2 q.c, with |c|^2
-// rounded on the host (geometry/device.py center_sq_norms).
+// it runs on the box and triangle casts (21 instantiations in all).
+//
+// Tables: the centre table [x, y, z, |c|^2] (centre mode; padded to a
+// multiple of eight with rows whose key is +inf, never nearest), the facet
+// table, T_sv, the lifetime grid and the triangle table (three float4 words
+// a triangle) are staged in shared memory per block; the diffuse tables
+// (diff2, omega_vel, |k|^2, the partner bitmask, the lifetime table) are
+// gathered from global memory (they fit in the 50 MB L2) at a rough-wall
+// hit only. The nearest-centre loop walks every centre (up to 256), eight
+// a step with one 16-byte broadcast read a centre, twice per lane — before
+// and after the drift — keeping the first minimum of |c|^2 - 2 q.c, with
+// |c|^2 rounded on the host (geometry/device.py center_sq_norms). (The
+// constant bank was measured slower for the centres, with indexed loads and
+// with the loop unrolled in full: it is not used.)
+//
+// Triangle casts go through a block-local queue: the lanes that need one
+// (fresh lanes, and lanes moved by an event round) post their ray to shared
+// memory, and the block's threads solve the queued rays densely, G threads
+// a ray (G = 32 down to 1 as the queue fills the block), each thread the
+// triangles k = g, g + G, ..., the partial results combined by warp
+// shuffles on the key (t, k) — the lexicographic minimum is the serial
+// cast's first-minimum rule, so the answer is the same bits. A lane whose
+// flight ends at a wall is a few percent of the pool, but one is enough to
+// make its whole warp run a serial 32-triangle cast; the queue runs only
+// the casts that exist. The triangle instantiations are held to 64
+// registers (four blocks an SM), which measured faster than their own
+// choice of ~80 despite a few spilled words (min_blocks).
 //
 // Launches: lanes (physics, pool write, pending flags, per-block counts
 // and partial sums) -> scan of the per-block pending counts -> export
 // (pending lanes below ecap copy their rows and pool index to their global
-// rank and leave the pool; the clamped rest is binned) -> fixed-order
-// reductions of the partials and counts. Integer rows are read and written
+// rank and leave the pool; the clamped rest is binned) -> one launch of
+// fixed-order reductions of the partials and counts, one block an output.
+// Per-block sums use a stable counting sort of the block's lanes by
+// segment (scan.cuh block_segment_sums). Integer rows are read and written
 // as int32/uint32 bits only.
 #include <math.h>
 
@@ -58,7 +78,8 @@ struct MegaCfg {  // mirrored by _CCfg in ops/megastep.py, field for field
   const int* cmask;        // (n_modes,) bit r: a specular partner at row r
   const float* tau;        // (n_tau, n_modes) lifetime table
   const float* tau_T;      // (n_tau,) its temperatures
-  const float* centers;    // (sv, 4) [x, y, z, |c|^2] (centre mode only)
+  const float* centers;    // (sv8, 4) [x, y, z, |c|^2] (centre mode only), padded
+                           // with rows [0, 0, 0, +inf] that are never nearest
 };
 
 namespace {
@@ -131,19 +152,28 @@ __device__ __forceinline__ float occ_delta_omega(float a, float b, const MegaCfg
   return (okA && okB) ? (eB - eA) / (eA * eB) : nA - nB;
 }
 
+// centre k's distance key |c|^2 - 2 q.c: the product by 2 is exact, so
+// the fused multiply-add rounds once, as the twin's subtraction does
+__device__ __forceinline__ float cen_key(const float p[3], const float4 q) {
+  return __fmaf_rn(-2.0f, (p[0] * q.x + p[1] * q.y) + p[2] * q.z, q.w);
+}
+
 // the subvolume of position p: slice index arithmetic, or the first centre
-// with the least |c|^2 - 2 q.c (strict < from +inf: a NaN never wins)
+// with the least |c|^2 - 2 q.c (strict < from +inf: a NaN never wins); the
+// shared table is padded to sv8 rows with keys of +inf, eight centres a step
 template <int SVM>
-__device__ __forceinline__ int sv_of(const float p[3], const MegaCfg& c, const float4* cen) {
+__device__ __forceinline__ int sv_of(const float p[3], const MegaCfg& c, const float4* s_cen) {
   if (SVM == SV_CENTER) {
     int best = 0;
     float bd = INFINITY;
-    for (int k = 0; k < c.sv; ++k) {
-      const float4 q = cen[k];
-      const float d = q.w - 2.0f * ((p[0] * q.x + p[1] * q.y) + p[2] * q.z);
-      if (d < bd) {
-        bd = d;
-        best = k;
+    for (int k = 0; k < c.sv8; k += 8) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float d = cen_key(p, s_cen[k + j]);
+        if (d < bd) {
+          bd = d;
+          best = k + j;
+        }
       }
     }
     return best;
@@ -191,50 +221,109 @@ __device__ __forceinline__ void box_cast(const float p[3], const float v[3], int
   *f_out = best_f;
 }
 
-// Möller–Trumbore against every triangle (ops/raycast.py tri_cast: the
-// same operations in the same order), skipping facet `exclude`; the
-// nearest valid hit wins, the first triangle on a tie
-__device__ __forceinline__ void tri_cast(const float p[3], const float v[3], int exclude,
-                                         const float* tri, int n_tris, float* t_out,
-                                         int* f_out) {
-  float best_t = INFINITY;
-  int best_f = -1;
-  for (int k = 0; k < n_tris; ++k) {
-    const float* r = tri + k * TRI_W;
-    const float e1x = r[3], e1y = r[4], e1z = r[5];
-    const float e2x = r[6], e2y = r[7], e2z = r[8];
-    const int fid = __float_as_int(r[9]);
-    const float hx = v[1] * e2z - v[2] * e2y;
-    const float hy = v[2] * e2x - v[0] * e2z;
-    const float hz = v[0] * e2y - v[1] * e2x;
-    const float det = (e1x * hx + e1y * hy) + e1z * hz;
-    const bool okd = fabsf(det) > EPS_DET;
-    const float inv = okd ? 1.0f / det : 0.0f;
-    const float sx = p[0] - r[0], sy = p[1] - r[1], sz = p[2] - r[2];
-    const float u = ((sx * hx + sy * hy) + sz * hz) * inv;
-    const float qx = sy * e1z - sz * e1y;
-    const float qy = sz * e1x - sx * e1z;
-    const float qz = sx * e1y - sy * e1x;
-    const float w = ((v[0] * qx + v[1] * qy) + v[2] * qz) * inv;
-    const float t_raw = ((e2x * qx + e2y * qy) + e2z * qz) * inv;
-    const float t = clamp_min(t_raw, 0.0f);
-    if (okd && u >= -BARY_TOL && w >= -BARY_TOL && u + w <= 1.0f + BARY_TOL &&
-        t_raw > T_BACK && exclude != fid && t < best_t) {
-      best_t = t;
-      best_f = fid;
-    }
-  }
-  *t_out = best_t;
-  *f_out = best_f;
+// Möller–Trumbore against triangle k of the shared table (three float4
+// words a triangle: [o, e1.x], [e1.yz, e2.xy], [e2.z, facet bits, -, -]):
+// ops/raycast.py tri_cast's operations in its order. True when the hit is
+// valid (and not on facet `exclude`); *t the clamped hit time
+__device__ __forceinline__ bool tri_hit(const float p[3], const float v[3], int exclude,
+                                        const float4* tri4, int k, float* t, int* fid) {
+  const float4 a = tri4[3 * k], b = tri4[3 * k + 1], q = tri4[3 * k + 2];
+  const float e1x = a.w, e1y = b.x, e1z = b.y;
+  const float e2x = b.z, e2y = b.w, e2z = q.x;
+  *fid = __float_as_int(q.y);
+  const float hx = v[1] * e2z - v[2] * e2y;
+  const float hy = v[2] * e2x - v[0] * e2z;
+  const float hz = v[0] * e2y - v[1] * e2x;
+  const float det = (e1x * hx + e1y * hy) + e1z * hz;
+  const bool okd = fabsf(det) > EPS_DET;
+  const float inv = okd ? 1.0f / det : 0.0f;
+  const float sx = p[0] - a.x, sy = p[1] - a.y, sz = p[2] - a.z;
+  const float u = ((sx * hx + sy * hy) + sz * hz) * inv;
+  const float qx = sy * e1z - sz * e1y;
+  const float qy = sz * e1x - sx * e1z;
+  const float qz = sx * e1y - sy * e1x;
+  const float w = ((v[0] * qx + v[1] * qy) + v[2] * qz) * inv;
+  const float t_raw = ((e2x * qx + e2y * qy) + e2z * qz) * inv;
+  *t = clamp_min(t_raw, 0.0f);
+  return okd && u >= -BARY_TOL && w >= -BARY_TOL && u + w <= 1.0f + BARY_TOL &&
+         t_raw > T_BACK && exclude != *fid;
 }
 
+// The triangle cast of the block's lanes that `need` one, through a shared
+// queue: every thread of the block calls it (it synchronises). The queued
+// rays are solved G threads a ray (G = 32, halved until the queue fits the
+// block), thread g taking triangles g, g + G, ... and keeping the nearest
+// valid hit, the first of its triangles on a tie; the G partial hits
+// combine by xor shuffles on the key (t, triangle): the nearest, then the
+// first triangle — the serial cast's answer. Lanes that need no cast keep
+// *t_out and *f_out.
+__device__ void queued_cast(bool need, const float p[3], const float v[3], int exclude,
+                            const float4* tri4, int n_tris, float* t_out, int* f_out) {
+  __shared__ float4 q_in[2][NK_BLOCK];
+  __shared__ float q_t[NK_BLOCK];
+  __shared__ int q_f[NK_BLOCK];
+  int total;
+  const int pos = nk::block_rank(need, &total);
+  if (total == 0) return;  // block-uniform
+  if (need) {
+    q_in[0][pos] = make_float4(p[0], p[1], p[2], v[0]);
+    q_in[1][pos] = make_float4(v[1], v[2], __int_as_float(exclude), 0.0f);
+  }
+  __syncthreads();
+  int lg = 5;  // G = 1 << lg threads a queued ray
+  while (lg > 0 && (total << lg) > NK_BLOCK) --lg;
+  const int G = 1 << lg;
+  const int g = threadIdx.x & (G - 1);
+  for (int base = 0; base < total; base += NK_BLOCK >> lg) {
+    const int item = base + (threadIdx.x >> lg);
+    float bt = INFINITY;
+    int bk = 0x7fffffff, bf = -1;
+    if (item < total) {
+      const float4 a = q_in[0][item], b = q_in[1][item];
+      const float qp[3] = {a.x, a.y, a.z};
+      const float qv[3] = {a.w, b.x, b.y};
+      const int ex = __float_as_int(b.z);
+      for (int k = g; k < n_tris; k += G) {
+        float t;
+        int fid;
+        if (tri_hit(qp, qv, ex, tri4, k, &t, &fid) && t < bt) {
+          bt = t;
+          bk = k;
+          bf = fid;
+        }
+      }
+    }
+    for (int off = G >> 1; off > 0; off >>= 1) {
+      const float ot = __shfl_xor_sync(0xffffffffu, bt, off, G);
+      const int ok = __shfl_xor_sync(0xffffffffu, bk, off, G);
+      const int of = __shfl_xor_sync(0xffffffffu, bf, off, G);
+      if (ot < bt || (ot == bt && ok < bk)) {
+        bt = ot;
+        bk = ok;
+        bf = of;
+      }
+    }
+    if (item < total && g == 0) {
+      q_t[item] = bt;
+      q_f[item] = bf;
+    }
+  }
+  __syncthreads();
+  if (need) {
+    *t_out = q_t[pos];
+    *f_out = q_f[pos];
+  }
+}
+
+// the ray cast of the lanes that `need` one: the box slab cast per lane, or
+// the queued triangle cast (every thread of the block calls it)
 template <bool TRI>
-__device__ __forceinline__ void cast(const float p[3], const float v[3], int exclude,
-                                     const float* fac, const float* tri, int n_tris,
+__device__ __forceinline__ void cast(bool need, const float p[3], const float v[3], int exclude,
+                                     const float* fac, const float4* tri4, int n_tris,
                                      float* t_out, int* f_out) {
   if (TRI)
-    tri_cast(p, v, exclude, tri, n_tris, t_out, f_out);
-  else
+    queued_cast(need, p, v, exclude, tri4, n_tris, t_out, f_out);
+  else if (need)
     box_cast(p, v, exclude, fac, t_out, f_out);
 }
 
@@ -257,56 +346,78 @@ __device__ __forceinline__ float e_bin(float omega, float dev, float T, const Me
   return (c.hbar * omega) * (dev - occ_delta(T, omega, c));
 }
 
-// blk: per-block counts [pending | alive | diffused | flagged], nb each
+// blk: per-block counts [pending | alive | diffused | flagged], nb each.
+// Every thread runs to the end (the queued cast and the block sums
+// synchronise the block); threads past the pool's end carry a dead lane.
+// blocks an SM the compiler must fit (registers): four for the triangle
+// casts, five for the box casts on slices, free for the full mirror and the
+// centre mode (whose extra live state would spill)
+template <bool TRI, int LAY, int SVM>
+constexpr int min_blocks() {
+  return TRI ? 4 : (LAY == L_FULL || SVM == SV_CENTER ? 1 : 5);
+}
+
 template <bool TRI, int LAY, bool PRECAST, int SVM>
-__global__ void __launch_bounds__(NK_BLOCK)
+__global__ void __launch_bounds__(NK_BLOCK, (min_blocks<TRI, LAY, SVM>()))
 mega_lanes(const MegaCfg c, float* __restrict__ pool, const float* __restrict__ T_sv,
            uint8_t* __restrict__ pend_flag, int* __restrict__ blk,
            float* __restrict__ part_bins, float* __restrict__ part_led) {
   extern __shared__ float4 s_dyn4[];
-  const int n_cen = SVM == SV_CENTER ? c.sv : 0;
-  const float4* s_cen = s_dyn4;                  // n_cen centres (16-byte aligned first)
-  float* s_fac = reinterpret_cast<float*>(s_dyn4 + n_cen);  // n_facets * FT_W
-  float* s_tri = s_fac + c.n_facets * FT_W;     // n_tris * TRI_W
-  float* s_T = s_tri + c.n_tris * TRI_W;        // sv
-  float* s_tT = s_T + c.sv;                     // n_tau
+  const int n_cen = SVM == SV_CENTER ? c.sv8 : 0;
+  float4* s_cen = s_dyn4;                                           // n_cen centres
+  float4* s_tri4 = s_dyn4 + n_cen;                                  // 3 * n_tris words
+  float* s_fac = reinterpret_cast<float*>(s_tri4 + 3 * c.n_tris);  // n_facets * FT_W
   for (int k = threadIdx.x; k < n_cen; k += NK_BLOCK)
-    s_dyn4[k] = reinterpret_cast<const float4*>(c.centers)[k];
+    s_cen[k] = reinterpret_cast<const float4*>(c.centers)[k];
+  float* s_T = s_fac + c.n_facets * FT_W;                           // sv
+  float* s_tT = s_T + c.sv;                                         // n_tau
+  for (int k = threadIdx.x; k < c.n_tris; k += NK_BLOCK) {
+    const float* r = c.tris + (size_t)k * TRI_W;
+    s_tri4[3 * k] = make_float4(r[0], r[1], r[2], r[3]);
+    s_tri4[3 * k + 1] = make_float4(r[4], r[5], r[6], r[7]);
+    s_tri4[3 * k + 2] = make_float4(r[8], r[9], 0.0f, 0.0f);
+  }
   for (int k = threadIdx.x; k < c.n_facets * FT_W; k += NK_BLOCK) s_fac[k] = c.facets[k];
-  for (int k = threadIdx.x; k < c.n_tris * TRI_W; k += NK_BLOCK) s_tri[k] = c.tris[k];
   for (int k = threadIdx.x; k < c.sv; k += NK_BLOCK) s_T[k] = T_sv[k];
   for (int k = threadIdx.x; k < c.n_tau; k += NK_BLOCK) s_tT[k] = c.tau_T[k];
   __syncthreads();
   const int N = c.n;
   const int nb = gridDim.x;
   const int i = blockIdx.x * NK_BLOCK + threadIdx.x;
+  const bool live = i < N;
   constexpr bool SLIM = LAY == L_SLIM;
   constexpr bool FULL = LAY == L_FULL;
   constexpr bool SLOPE = SLIM || FULL;  // slope-form lifetimes
   const bool dkern = LAY == L_PLAIN && !PRECAST && c.n_modes > 0;  // the diffuse tables are present
-  bool alive = false, pend = false, sflag = false;
+  bool pend = false, sflag = false;
   int n_diff = 0;
   int seg_bin = -1, seg_led = -1;
   float bv[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
   float led[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
 
-  if (i < N) {
-    auto row = [&](int r) -> float& { return pool[(size_t)r * N + i]; };
-    float p[3] = {row(0), row(1), row(2)};
-    float v[3] = {row(3), row(4), row(5)};
-    float omega = row(C_OMEGA);
-    float tau = row(C_TAU);
-    float dev = row(C_DEV);
-    int mode = __float_as_int(row(C_MODE));
-    int cf = __float_as_int(row(C_CF));
-    float t_coll = row(C_TCOLL);
-    int onf = __float_as_int(row(C_ONF));
-    const float rem_col = row(C_REM);
+  auto row = [&](int r) -> float& { return pool[(size_t)r * N + i]; };
+  float p[3] = {0.f, 0.f, 0.f}, v[3] = {0.f, 0.f, 0.f};
+  float omega = 0.0f, tau = 0.0f, dev = 0.0f, t_coll = 0.0f, rem_col = 0.0f;
+  int mode = 0, cf = -1, onf = -1;
+  bool alive = false;
+  int m_mode = 0;
+  float tau_b = 0.0f;
+  float m_omega = 0.0f, m_tau = 0.0f, m_tau_b = 0.0f;
+  float m_v[3] = {0.f, 0.f, 0.f};
+  if (live) {
+    for (int k = 0; k < 3; ++k) {
+      p[k] = row(k);
+      v[k] = row(3 + k);
+    }
+    omega = row(C_OMEGA);
+    tau = row(C_TAU);
+    dev = row(C_DEV);
+    mode = __float_as_int(row(C_MODE));
+    cf = __float_as_int(row(C_CF));
+    t_coll = row(C_TCOLL);
+    onf = __float_as_int(row(C_ONF));
+    rem_col = row(C_REM);
     alive = row(C_ALIVE) > 0.5f;
-    int m_mode = 0;
-    float tau_b = 0.0f;
-    float m_omega = 0.0f, m_tau = 0.0f, m_tau_b = 0.0f;
-    float m_v[3] = {0.f, 0.f, 0.f};
     if (SLOPE) {
       m_mode = __float_as_int(row(R_MMODE));
       tau_b = row(SLIM ? R_TAUB : R_XTAUB);
@@ -317,54 +428,58 @@ mega_lanes(const MegaCfg c, float* __restrict__ pool, const float* __restrict__ 
       m_tau = row(R_XTAU);
       m_tau_b = row(R_XMTAUB);
     }
-    // a lane that won its specular draw in an earlier step but was frozen
-    // by the export clamp re-enters flagged, already decided
-    if (dkern && alive && t_coll < -1.5f) {
-      sflag = true;
-      t_coll = 0.0f;
-    }
+  }
+  // a lane that won its specular draw in an earlier step but was frozen
+  // by the export clamp re-enters flagged, already decided
+  if (dkern && alive && t_coll < -1.5f) {
+    sflag = true;
+    t_coll = 0.0f;
+  }
 
-    // ---- 1. deferred RTA ----------------------------------------------------
-    const int sv = sv_of<SVM>(p, c, s_cen);
-    float rem = rem_col > REMAIN_EPS ? rem_col : (alive ? 1.0f : 0.0f);
-    const float T_p = T_at<SVM>(p, sv, c, s_T);
-    const float g = occ_delta(T_p, omega, c);
-    float tau_ev = tau;
-    if (SLOPE) {  // slope-form lifetime
-      const float T_c = T_p < c.tau_tmin ? c.tau_tmin : (T_p > c.tau_tmax ? c.tau_tmax : T_p);
-      tau_ev = tau + tau_b * T_c;
-    }
-    const float decay = tau_ev > 0.0f ? expf((-c.dt) / max_p(tau_ev, 1e-12f)) : 0.0f;
-    // fresh: injected this step (it predates the deferred RTA)
-    const bool fresh = PRECAST ? t_coll < -0.5f : cf == STALE;
-    if (alive && !fresh && c.rta_on) dev = g + (dev - g) * decay;
+  // ---- 1. deferred RTA ----------------------------------------------------
+  const int sv = sv_of<SVM>(p, c, s_cen);
+  float rem = rem_col > REMAIN_EPS ? rem_col : (alive ? 1.0f : 0.0f);
+  const float T_p = T_at<SVM>(p, sv, c, s_T);
+  const float g = occ_delta(T_p, omega, c);
+  float tau_ev = tau;
+  if (SLOPE) {  // slope-form lifetime
+    const float T_c = T_p < c.tau_tmin ? c.tau_tmin : (T_p > c.tau_tmax ? c.tau_tmax : T_p);
+    tau_ev = tau + tau_b * T_c;
+  }
+  const float decay = tau_ev > 0.0f ? expf((-c.dt) / max_p(tau_ev, 1e-12f)) : 0.0f;
+  // fresh: injected this step (it predates the deferred RTA)
+  const bool fresh = PRECAST ? t_coll < -0.5f : cf == STALE;
+  if (alive && !fresh && c.rta_on) dev = g + (dev - g) * decay;
 
-    // ---- 2. stale-lane ray cast, or the pre-cast flight time decoded ---------
-    if (PRECAST) {
-      if (fresh) t_coll = -t_coll - 1.0f;
-    } else if (alive && fresh) {
-      float tb;
-      int fb;
-      cast<TRI>(p, v, onf, s_fac, s_tri, c.n_tris, &tb, &fb);
+  // ---- 2. stale-lane ray cast, or the pre-cast flight time decoded ---------
+  if (PRECAST) {
+    if (fresh) t_coll = -t_coll - 1.0f;
+  } else {
+    const bool need = alive && fresh;
+    float tb = 0.0f;
+    int fb = 0;
+    cast<TRI>(need, p, v, onf, s_fac, s_tri4, c.n_tris, &tb, &fb);
+    if (need) {
       t_coll = tb / c.dt;
       cf = fb;
     }
+  }
 
-    // ---- 3. drift --------------------------------------------------------------
-    float sf = alive ? min_p(t_coll, rem) : 0.0f;
-    sf = sf < 1e30f ? sf : rem;
-    for (int k = 0; k < 3; ++k) p[k] = p[k] + v[k] * (c.dt * sf);
-    t_coll = t_coll - sf;
-    rem = alive ? max_p(rem - sf, 0.0f) : 0.0f;
+  // ---- 3. drift --------------------------------------------------------------
+  float sf = alive ? min_p(t_coll, rem) : 0.0f;
+  sf = sf < 1e30f ? sf : rem;
+  for (int k = 0; k < 3; ++k) p[k] = p[k] + v[k] * (c.dt * sf);
+  t_coll = t_coll - sf;
+  rem = alive ? max_p(rem - sf, 0.0f) : 0.0f;
 
-    // ---- 4. in-kernel event rounds (none with PRECAST) --------------------------
-    for (int round = 0; round < (PRECAST ? 0 : c.rounds); ++round) {
-      const bool pd = alive && rem > REMAIN_EPS && cf >= 0 && t_coll <= 1e-9f;
-      if (!pd) continue;
+  // ---- 4. in-kernel event rounds (none with PRECAST) --------------------------
+  for (int round = 0; round < (PRECAST ? 0 : c.rounds); ++round) {
+    const bool pd = alive && rem > REMAIN_EPS && cf >= 0 && t_coll <= 1e-9f;
+    bool mv = false;
+    if (pd) {
       const float* fr = s_fac + cf * FT_W;
       const int kind = __float_as_int(fr[FT_KIND]);
       const float n[3] = {fr[FT_NORMAL], fr[FT_NORMAL + 1], fr[FT_NORMAL + 2]};
-      bool mv = false;
       if (kind == K_ABSORB) {
         const float dn_abs = dev - occ_delta(fr[FT_VALUE], omega, c);
         const float e_abs = (c.hbar * omega) * dn_abs;
@@ -457,24 +572,27 @@ mega_lanes(const MegaCfg c, float* __restrict__ pool, const float* __restrict__ 
           }
         }
       }
-      if (mv) {
-        float tb;
-        int fb;
-        cast<TRI>(p, v, onf, s_fac, s_tri, c.n_tris, &tb, &fb);
-        t_coll = tb / c.dt;
-        cf = fb;
-        float s2 = min_p(t_coll, rem);
-        s2 = s2 < 1e30f ? s2 : rem;
-        for (int k = 0; k < 3; ++k) p[k] = p[k] + v[k] * (c.dt * s2);
-        t_coll = t_coll - s2;
-        rem = max_p(rem - s2, 0.0f);
-      }
     }
-    if (sflag) t_coll = -2.0f;  // the flag rides C_TCOLL out
+    // moved lanes re-cast and drift on
+    float tb = 0.0f;
+    int fb = 0;
+    cast<TRI>(mv, p, v, onf, s_fac, s_tri4, c.n_tris, &tb, &fb);
+    if (mv) {
+      t_coll = tb / c.dt;
+      cf = fb;
+      float s2 = min_p(t_coll, rem);
+      s2 = s2 < 1e30f ? s2 : rem;
+      for (int k = 0; k < 3; ++k) p[k] = p[k] + v[k] * (c.dt * s2);
+      t_coll = t_coll - s2;
+      rem = max_p(rem - s2, 0.0f);
+    }
+  }
+  if (sflag) t_coll = -2.0f;  // the flag rides C_TCOLL out
 
-    // ---- 5/6. pending flag, pool write, sums of the lanes that stay ------------
-    pend = alive && rem > REMAIN_EPS && cf >= 0 && t_coll <= 1e-9f;
-    const int sv2 = sv_of<SVM>(p, c, s_cen);
+  // ---- 5/6. pending flag, pool write, sums of the lanes that stay ------------
+  pend = alive && rem > REMAIN_EPS && cf >= 0 && t_coll <= 1e-9f;
+  const int sv2 = sv_of<SVM>(p, c, s_cen);
+  if (live) {
     for (int k = 0; k < 3; ++k) {
       row(k) = p[k];
       row(3 + k) = v[k];
@@ -500,15 +618,15 @@ mega_lanes(const MegaCfg c, float* __restrict__ pool, const float* __restrict__ 
       row(R_XMTAUB) = m_tau_b;
     }
     pend_flag[i] = pend ? 1 : 0;
-    if (alive && !pend) {
-      const float e = e_bin(omega, dev, s_T[sv2], c);
-      seg_bin = sv2;
-      bv[0] = e;
-      bv[1] = e * v[0];
-      bv[2] = e * v[1];
-      bv[3] = e * v[2];
-      bv[4] = 1.0f;
-    }
+  }
+  if (alive && !pend) {
+    const float e = e_bin(omega, dev, s_T[sv2], c);
+    seg_bin = sv2;
+    bv[0] = e;
+    bv[1] = e * v[0];
+    bv[2] = e * v[1];
+    bv[3] = e * v[2];
+    bv[4] = 1.0f;
   }
   const int n_pend = __syncthreads_count(pend);
   const int n_alive = __syncthreads_count(alive);
@@ -521,19 +639,14 @@ mega_lanes(const MegaCfg c, float* __restrict__ pool, const float* __restrict__ 
     blk[3 * nb + blockIdx.x] = n_flag;
   }
   nk::block_segment_sums(seg_bin, bv, c.sv8, part_bins, nb);
-  if (__syncthreads_count(seg_led >= 0) > 0) {
-    nk::block_segment_sums(seg_led, led, R8, part_led, nb);
-  } else {
-    for (int o = threadIdx.x; o < R8 * 5; o += NK_BLOCK)
-      part_led[(size_t)o * nb + blockIdx.x] = 0.0f;
-  }
+  nk::block_segment_sums(seg_led, led, R8, part_led, nb);
 }
 
 __global__ void __launch_bounds__(NK_BLOCK)
 mega_export(const MegaCfg c, float* __restrict__ pool, const float* __restrict__ T_sv,
             const uint8_t* __restrict__ pend_flag, const int* __restrict__ pend_off,
             float* __restrict__ rows, int* __restrict__ idx,
-            float* __restrict__ part_frozen) {
+            float* __restrict__ part_frozen, const int* __restrict__ cnt) {
   const int N = c.n;
   const int nb = gridDim.x;
   const int i = blockIdx.x * NK_BLOCK + threadIdx.x;
@@ -542,9 +655,13 @@ mega_export(const MegaCfg c, float* __restrict__ pool, const float* __restrict__
   const bool p = i < N && pend_flag[i] != 0;
   int total;
   const int r = nk::block_rank(p, &total);
+  // with no lane frozen anywhere (pending <= ecap) the frozen partials are
+  // neither written nor read (mega_reduce)
+  const bool any_frozen = cnt[0] > cnt[2];
   if (total == 0) {  // block-uniform: no pending lane here
-    for (int o = threadIdx.x; o < c.sv8 * 5; o += NK_BLOCK)
-      part_frozen[(size_t)o * nb + blockIdx.x] = 0.0f;
+    if (any_frozen)
+      for (int o = threadIdx.x; o < c.sv8 * 5; o += NK_BLOCK)
+        part_frozen[(size_t)o * nb + blockIdx.x] = 0.0f;
     return;
   }
   int seg = -1;
@@ -553,9 +670,17 @@ mega_export(const MegaCfg c, float* __restrict__ pool, const float* __restrict__
     const int g = pend_off[blockIdx.x] + r;
     const uint32_t* src = reinterpret_cast<const uint32_t*>(pool);
     if (g < c.ecap) {  // exported: the row leaves the pool
+      // eight rows loaded before they are stored: the loads overlap
       uint32_t* dst = reinterpret_cast<uint32_t*>(rows);
-      for (int k = 0; k < c.n_rows; ++k) dst[(size_t)k * c.ecap + g] = src[(size_t)k * N + i];
-      rows[(size_t)C_ALIVE * c.ecap + g] = 0.0f;
+      for (int k0 = 0; k0 < c.n_rows; k0 += 8) {
+        uint32_t w[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          w[k] = k0 + k < c.n_rows ? src[(size_t)(k0 + k) * N + i] : 0u;
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          if (k0 + k < c.n_rows) dst[(size_t)(k0 + k) * c.ecap + g] = k0 + k == C_ALIVE ? 0u : w[k];
+      }
       idx[g] = i;
       pool[(size_t)C_ALIVE * N + i] = 0.0f;
     } else {  // frozen by the clamp: stays (pending) and is binned here
@@ -568,24 +693,26 @@ mega_export(const MegaCfg c, float* __restrict__ pool, const float* __restrict__
       bv[4] = 1.0f;
     }
   }
-  nk::block_segment_sums(seg, bv, c.sv8, part_frozen, nb);
+  if (any_frozen) nk::block_segment_sums(seg, bv, c.sv8, part_frozen, nb);
 }
 
-// block b sums a[b * nb .. b * nb + nb) into out[slot[b]]
+// One block an output, in this order: the bins (the staying lanes' and the
+// frozen lanes' partials), the ledger, then the alive, diffused and flagged
+// counts; every sum in its fixed order (scan.cuh reduce_partials /
+// reduce_counts).
 __global__ void __launch_bounds__(NK_BLOCK)
-sum_counts(const int* __restrict__ a, int nb, int* __restrict__ out) {
-  __shared__ long long sh[NK_BLOCK];
-  const int* src = a + (size_t)blockIdx.x * nb;
-  long long s = 0;
-  for (int j = threadIdx.x; j < nb; j += NK_BLOCK) s += src[j];
-  sh[threadIdx.x] = s;
-  __syncthreads();
-  for (int w = NK_BLOCK / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) sh[threadIdx.x] += sh[threadIdx.x + w];
-    __syncthreads();
+mega_reduce(const float* __restrict__ part_bins, const float* __restrict__ part_frozen,
+            const float* __restrict__ part_led, const int* __restrict__ blk, int nb, int nbins,
+            float* __restrict__ bins, float* __restrict__ ledger, int* __restrict__ cnt) {
+  const int o = blockIdx.x;
+  if (o < nbins) {  // counts: [pending, alive, kept, ...]; frozen = pending - kept
+    nk::reduce_partials(part_bins, cnt[0] > cnt[2] ? part_frozen : nullptr, nb, o, bins);
+  } else if (o < nbins + R8 * 5) {
+    nk::reduce_partials(part_led, nullptr, nb, o - nbins, ledger);
+  } else {  // alive -> counts[1], diffused -> counts[3], flagged -> counts[4]
+    const int j = o - nbins - R8 * 5;
+    nk::reduce_counts(blk + (size_t)(1 + j) * nb, nb, cnt + (j == 0 ? 1 : j + 2));
   }
-  // alive -> counts[1], diffused -> counts[3], flagged -> counts[4]
-  if (threadIdx.x == 0) out[blockIdx.x == 0 ? 1 : blockIdx.x + 2] = (int)sh[0];
 }
 
 template <bool TRI, int LAY, bool PRECAST, int SVM>
@@ -638,7 +765,7 @@ extern "C" int nk_megastep(const void* cfg, void* pool, const void* T_sv, void* 
   const MegaCfg c = *static_cast<const MegaCfg*>(cfg);
   const int nb = (c.n + NK_BLOCK - 1) / NK_BLOCK;
   if (nb == 0 || c.sv > MAX_SV || (c.n_rows != 16 && c.n_rows != 18 && c.n_rows != 24) ||
-      (c.sv_mode == SV_CENTER && (c.sv > MAX_CEN || c.centers == nullptr)) ||
+      (c.sv_mode == SV_CENTER && (c.sv8 > MAX_CEN || c.centers == nullptr)) ||
       (c.sv_mode == SV_LINEAR && c.sv < 2))
     return static_cast<int>(cudaErrorInvalidValue);
   float* part_bins = static_cast<float*>(scratch_f);
@@ -650,9 +777,9 @@ extern "C" int nk_megastep(const void* cfg, void* pool, const void* T_sv, void* 
   float* p = static_cast<float*>(pool);
   const float* T = static_cast<const float*>(T_sv);
   uint8_t* flag = static_cast<uint8_t*>(pend);
-  const size_t n_cen = c.sv_mode == SV_CENTER ? c.sv : 0;
-  const size_t smem = sizeof(float) * (4 * n_cen + (size_t)c.n_facets * FT_W +
-                                       (size_t)c.n_tris * TRI_W + c.sv + c.n_tau);
+  const size_t n_cen = c.sv_mode == SV_CENTER ? c.sv8 : 0;
+  const size_t smem = sizeof(float4) * (n_cen + 3 * (size_t)c.n_tris) +
+                      sizeof(float) * ((size_t)c.n_facets * FT_W + c.sv + c.n_tau);
 
   int bad;
   if (c.sv_mode == SV_SLICE)
@@ -664,13 +791,11 @@ extern "C" int nk_megastep(const void* cfg, void* pool, const void* T_sv, void* 
   else
     bad = static_cast<int>(cudaErrorInvalidValue);
   if (bad) return bad;
-  nk::scan_counts<<<1, NK_SCAN, 0, s>>>(blk, nb, pend_off, cnt + 0, c.ecap, cnt + 2);
+  nk::scan_runs<<<1, NK_SCAN, 0, s>>>(blk, nb, pend_off, cnt + 0, c.ecap, cnt + 2);
   mega_export<<<nb, NK_BLOCK, 0, s>>>(c, p, T, flag, pend_off, static_cast<float*>(rows),
-                                      static_cast<int*>(idx), part_frozen);
-  sum_counts<<<3, NK_BLOCK, 0, s>>>(blk + nb, nb, cnt);
-  nk::reduce_partials<<<c.sv8 * 5, NK_BLOCK, 0, s>>>(part_bins, part_frozen, nb,
-                                                      static_cast<float*>(bins));
-  nk::reduce_partials<<<R8 * 5, NK_BLOCK, 0, s>>>(part_led, nullptr, nb,
-                                                   static_cast<float*>(ledger));
+                                      static_cast<int*>(idx), part_frozen, cnt);
+  mega_reduce<<<c.sv8 * 5 + R8 * 5 + 3, NK_BLOCK, 0, s>>>(
+      part_bins, part_frozen, part_led, blk, nb, c.sv8 * 5, static_cast<float*>(bins),
+      static_cast<float*>(ledger), cnt);
   return static_cast<int>(cudaGetLastError());
 }

@@ -67,19 +67,26 @@ gather per lane; the card can, and the tables fit in its L2.
 CUDA design (csrc/megastep.cu): one thread per lane over the SoA pool,
 updated in place; templates on box/triangle cast, plain/slim/full layout, the
 cast-off branch and the subvolume/temperature mode (SV_SLICE, SV_LINEAR,
-SV_CENTER). The centre table [x, y, z, |c|^2] rides first in shared memory
+SV_CENTER). The centre table [x, y, z, |c|^2], padded to a multiple of eight
+rows with never-nearest rows (`_pad_centers`), rides first in shared memory
 in the centre mode; the nearest-centre loop runs twice a lane (before and
-after the drift), ~7 float32 operations per centre: at 256 centres on the
-1.28e6-lane pool ~4.6 GFLOP, 0.07 ms at 67 TFLOP/s, above the pool's
-bytes (operations bound it there).
+after the drift), eight centres a step, ~7 float32 operations per centre:
+at 256 centres on the 1.28e6-lane pool ~4.6 GFLOP, 0.07 ms at 67 TFLOP/s,
+above the pool's bytes (operations bound it there).
 The per-facet table (kind, reservoir, value, normal, shift, pair, box plane,
 eta, table rows) and the triangle table ride in shared memory; the diffuse
 tables (diff2, omega_vel, |k|^2, the partner bitmask, the lifetime table)
-are gathered from global memory at a rough hit. Sums are deterministic:
-each block reduces its lanes in a fixed order into per-block partials and a
-second launch adds the partials in block order. Export: per-block pending
-counts, kernel C's scan, then each pending lane below `ecap` copies its rows
-to its global rank. What bounds it on the card: bytes — the pool is read
+are gathered from global memory at a rough hit. Triangle casts (fresh lanes
+and lanes an event round moved) go through a block-local queue, solved
+densely by up to 32 threads a ray whose partial hits combine on the key
+(t, triangle): the serial cast's first-minimum rule, so the same bits.
+Sums are deterministic: each block reduces its lanes in a fixed order into
+per-block partials (a stable counting sort by subvolume, then each output
+adds its run in thread order: the same additions in the same order as a
+loop over the block's lanes) and one more launch adds the partials in block
+order, one block an output. Export: per-block pending counts, a one-pass
+scan, then each pending lane below `ecap` copies its rows to its global
+rank. What bounds it on the card: bytes — the pool is read
 and written once, 2 x C x 4 bytes per lane (C = 18 slim, 16 plain; ~184 MB
 and ~164 MB at the 1.28e6-lane pool, 55 and 49 us at 3.35 TB/s; C = 24
 full, ~245 MB, 73 us); the
@@ -215,7 +222,7 @@ class MegaConfig:
     cmask: torch.Tensor  # (M,) i32 bit r: the mode has a specular partner at row r
     tau: torch.Tensor  # (nT, M) f32 lifetime table
     tau_T: torch.Tensor  # (nT,) f32
-    centers: torch.Tensor  # (SV, 4) f32 [x, y, z, |c|^2] (centre mode; empty otherwise)
+    centers: torch.Tensor  # (SV8, 4) f32 [x, y, z, |c|^2], padded (`_pad_centers`; centre mode; empty otherwise)
 
     @property
     def sv8(self) -> int:
@@ -293,6 +300,19 @@ def partner_bitmask(btab) -> np.ndarray:
     return cm.view(np.int32)
 
 
+def _pad_centers(centers: torch.Tensor) -> torch.Tensor:
+    """The (SV, 4) centre table padded to SV8 rows with [0, 0, 0, +inf]: a
+    padding row's key |c|^2 - 2 q.c is +inf (or NaN), which never beats the
+    running minimum, so the kernel walks whole steps of eight centres and
+    still returns the first nearest real centre."""
+    if centers.shape[0] == 0:
+        return centers
+    n8 = max(8, -(-centers.shape[0] // 8) * 8)
+    pad = torch.zeros((n8 - centers.shape[0], 4), dtype=centers.dtype, device=centers.device)
+    pad[:, 3] = float("inf")
+    return torch.cat([centers, pad]).contiguous()
+
+
 def mega_config(
     geo, mat, btab, params, ecap: int, flip_axis: int | None = None,
     kernel_cast: bool | None = None, layout: str | None = None,
@@ -326,7 +346,7 @@ def mega_config(
     SV = int(geo.n_subvols)
     if geo.subvol_type != "slice":
         sv_mode = SV_CENTER
-        centers = torch.cat([geo.subvol_center, geo.subvol_c2[:, None]], 1).contiguous()
+        centers = _pad_centers(torch.cat([geo.subvol_center, geo.subvol_c2[:, None]], 1))
     else:
         sv_mode = SV_LINEAR if params.temp_interp == "linear" else SV_SLICE
         centers = torch.zeros((0, 4), dtype=torch.float32, device=d)
@@ -416,7 +436,8 @@ def _cast(cfg: MegaConfig, p, v, exclude):
 
 def _sv_of(cfg: MegaConfig, p):
     if cfg.sv_mode == SV_CENTER:
-        return nearest_center(torch.stack(p, 1), cfg.centers[:, :3], cfg.centers[:, 3])
+        real = cfg.centers[: cfg.sv]
+        return nearest_center(torch.stack(p, 1), real[:, :3], real[:, 3])
     qa = p[cfg.slice_axis]
     return torch.clamp(((qa - cfg.lo_b) * cfg.inv_len).to(torch.int32), 0, cfg.sv - 1)
 

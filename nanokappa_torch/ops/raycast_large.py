@@ -23,13 +23,19 @@ semaphore, and the MXU products at HIGHEST precision — here every dot
 product is three products summed in a fixed order, in the kernel and in the
 twin alike, so the two agree bit for bit.
 
-CUDA design (csrc/raycast_large.cu): one thread per ray, 256 rays per
-block; per chunk a slab test of each ray against the chunk's reach box
-while the ray can still beat its running best, and a block-wide vote:
-a block that no ray of it reaches skips the chunk, else it stages the
-chunk's 13 x 128 words in shared memory and every ray solves all 128
-triangles. The reach box is the chunk's box widened by the largest spill of
-the barycentric tolerance over its triangles (2 * _BARY_TOL * (|e1| + |e2|),
+CUDA design (csrc/raycast_large.cu): G threads share each ray
+(`launch_shape`, chosen from the ray count), 256 threads a block. Each
+thread keeps the minimum of the key (t, chunk, facet) over the pairs it
+solves — the triangles k = g, g + G, ... of each chunk its ray reaches —
+and the G partial minima of a ray combine by warp shuffles on that key:
+the lexicographic minimum is the tie rule above, so the split gives the
+twin's answer bit for bit whatever G is. Per chunk, a slab test of the ray
+against the chunk's reach box while the ray can still beat the thread's
+running best; a block stages (cp.async, double-buffered, one 16-float
+record a triangle: `LargeMeshTables.rec`) only the chunks one of its rays
+reaches, and a thread solves a chunk only when its ray reaches it. The
+reach box is the chunk's box widened by the largest spill of the
+barycentric tolerance over its triangles (2 * _BARY_TOL * (|e1| + |e2|),
 doubled, plus 1 A for rounding), so a skipped chunk holds no hit the ray
 would accept: the skip never changes a result, and the twin, which solves
 every chunk for every ray, is the kernel's exact oracle.
@@ -58,8 +64,10 @@ _BARY_TOL = 1e-4  # wider than the dense cast's 1e-5: the plane solve rounds
 #   tolerances would find no boundary
 _T_BACK = -1e-4  # ps
 OPS_PER_PAIR = 46  # float32 operations of one (ray, triangle) solve
-TAB_ROWS = 13  # staged rows of the triangle table
-LANE_BLOCK = 256  # rays per CUDA block
+TAB_ROWS = 13  # rows of the triangle table the solve reads
+REC_W = 16  # floats of one triangle record (the table's 16 rows, transposed)
+THREADS = 256  # threads per CUDA block
+BOUND_GROUP = 256  # rays per group of the bound's chunk count (the first kernel's block)
 _PLAIN_LANES = 1 << 16  # rays per pass of the plain twin (bounds its memory)
 
 
@@ -71,6 +79,7 @@ class LargeMeshTables:
     bbox: torch.Tensor  # (16, nc) f32: lo (0-2), hi (3-5), frame origin (6-8)
     tab: torch.Tensor  # (16, Fp) f32: T1, T2, n, d, c1, c2, facet (int32 bits)
     reach: torch.Tensor  # (6, nc) f32: lo, hi of each chunk's reach box
+    rec: torch.Tensor | None = None  # (Fp, 16) f32: tab, one record a triangle (the kernel's)
 
     @property
     def nc(self) -> int:
@@ -103,7 +112,8 @@ def prep(geo) -> LargeMeshTables:
     """The host table build (cached on the geometry): Morton-sort the
     triangles, pad to a multiple of BF, pack the (16, Fp) triangle table and
     the (16, nc) chunk table exactly as the Pallas kernel's `_prep` does
-    (facet ids as int32 bits), and the chunks' reach boxes."""
+    (facet ids as int32 bits), the same table as one 16-float record a
+    triangle for the kernel, and the chunks' reach boxes."""
     cached = getattr(geo, "_large_cast", None)
     if cached is not None:
         return cached
@@ -173,6 +183,7 @@ def prep(geo) -> LargeMeshTables:
         order=order,
         bbox=torch.as_tensor(bbox, device=d),
         tab=torch.as_tensor(tab, device=d),
+        rec=torch.as_tensor(np.ascontiguousarray(tab.T), device=d),
         reach=torch.as_tensor(reach, device=d),
     )
     object.__setattr__(geo, "_large_cast", out)
@@ -184,11 +195,11 @@ def prep(geo) -> LargeMeshTables:
 # ---------------------------------------------------------------------------
 
 
-def _solve_chunk(tab, frame_c, x, v, ex):
-    """(t, facet) of the nearest valid hit of each ray within one chunk:
-    tab (13, BF) rows of the chunk, frame_c (3,) its frame origin; x, v
-    lists of 3 (n,) rows, ex (n,) i32. The kernel's operations in its
-    order."""
+def _pair_t(tab, frame_c, x, v, ex):
+    """(t, facet) of every (ray, triangle) pair of one chunk: tab (13, BF)
+    rows of the chunk, frame_c (3,) its frame origin; x, v lists of 3 (n,)
+    rows, ex (n,) i32. t (n, BF) is inf where the pair is no valid hit; the
+    kernel's operations in its order."""
     t1x, t1y, t1z, t2x, t2y, t2z, nx, ny, nz, d, c1, c2 = (tab[r][None, :] for r in range(12))
     fid = tab[12].contiguous().view(torch.int32)[None, :]
     xl0, xl1, xl2 = ((x[k] - frame_c[k])[:, None] for k in range(3))
@@ -204,21 +215,44 @@ def _solve_chunk(tab, frame_c, x, v, ex):
         den_ok & (u >= -_BARY_TOL) & (w >= -_BARY_TOL) & (u + w <= 1.0 + _BARY_TOL)
         & (fid != ex[:, None]) & (fid >= 0)
     )
-    t = torch.where(valid, t, float("inf"))
+    return torch.where(valid, t, float("inf")), fid.expand(t.shape)
+
+
+def _solve_chunk(tab, frame_c, x, v, ex):
+    """(t, facet) of the nearest valid hit of each ray within one chunk:
+    the smallest t, then the smallest facet id at that t."""
+    t, fid = _pair_t(tab, frame_c, x, v, ex)
     tmin = t.min(dim=1).values
     big = torch.iinfo(torch.int32).max
-    fmin = torch.where(valid & (t == tmin[:, None]), fid, big).min(dim=1).values
+    fmin = torch.where(torch.isfinite(t) & (t == tmin[:, None]), fid, big).min(dim=1).values
     return tmin, fmin
 
 
-def raycast_large_plain(tabs: LargeMeshTables, pos, vel, exclude):
+def _reach(tabs: LargeMeshTables, c: int, x, inv, bt):
+    """The kernel's slab test of each ray against chunk c's reach box while
+    the ray can still beat its best t (bt)."""
+    lo, hi = tabs.reach[0:3, c], tabs.reach[3:6, c]
+    tmin = torch.full_like(bt, -float("inf"))
+    tmax = torch.full_like(bt, float("inf"))
+    for k in range(3):
+        nr = (lo[k] - x[k]) * inv[k]
+        fr = (hi[k] - x[k]) * inv[k]
+        tmin = torch.maximum(tmin, torch.minimum(nr, fr))
+        tmax = torch.minimum(tmax, torch.maximum(nr, fr))
+    return (tmax >= torch.clamp(tmin, min=_T_BACK)) & (tmin < bt)
+
+
+def raycast_large_plain(tabs: LargeMeshTables, pos, vel, exclude, reach: bool = False):
     """The plain torch version: every chunk solved for every ray (no skip),
     in chunk order. pos, vel (N, 3) f32, exclude (N,) i32 -> (t (N,) f32 in
-    ps [inf if none], facet (N,) i32 [-1 if none])."""
+    ps [inf if none], facet (N,) i32 [-1 if none]); with `reach`, also the
+    (nc, N) bool mask of the rays that reach each chunk's box before their
+    best hit so far (the kernel's skip test; the bound counts its work)."""
     N = pos.shape[0]
     dev = pos.device
     t_out = torch.full((N,), float("inf"), dtype=torch.float32, device=dev)
     f_out = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    mask = torch.zeros((tabs.nc, N), dtype=torch.bool, device=dev) if reach else None
     frame = tabs.bbox[6:9]
     for s in range(0, N, _PLAIN_LANES):
         e = min(N, s + _PLAIN_LANES)
@@ -227,27 +261,66 @@ def raycast_large_plain(tabs: LargeMeshTables, pos, vel, exclude):
         ex = exclude[s:e]
         bt = t_out[s:e]
         bf = f_out[s:e]
+        if reach:
+            inv = [torch.ones_like(v[k]) / torch.where(v[k].abs() > 1e-30, v[k], 1e-30) for k in range(3)]
         for c in range(tabs.nc):
+            if reach:
+                mask[c, s:e] = _reach(tabs, c, x, inv, bt)
             tc, fc = _solve_chunk(tabs.tab[:TAB_ROWS, c * BF:(c + 1) * BF], frame[:, c], x, v, ex)
             closer = tc < bt
             bt = torch.where(closer, tc, bt)
             bf = torch.where(closer, fc, bf)
         t_out[s:e] = bt
         f_out[s:e] = bf
-    return t_out, f_out
+    return (t_out, f_out, mask) if reach else (t_out, f_out)
+
+
+def chunks_reached(mask: torch.Tensor) -> int:
+    """Chunks reached, summed over groups of BOUND_GROUP consecutive rays
+    (a chunk counts once for a group when one of its rays reaches it): the
+    pairs the bound counts are this times BOUND_GROUP * BF, whatever the
+    kernel's launch shape."""
+    nc, N = mask.shape
+    pad = -N % BOUND_GROUP
+    m = torch.nn.functional.pad(mask, (0, pad)).reshape(nc, -1, BOUND_GROUP)
+    return int(m.any(dim=2).sum())
 
 
 # ---------------------------------------------------------------------------
 # wrapper
 # ---------------------------------------------------------------------------
 
+THREADS_PER_RAY = (1, 8, 16)  # the G the kernel is built for: launch_shape's choices
 
-def raycast_large(geo, pos, vel, exclude, solved: torch.Tensor | None = None):
+
+def launch_shape(n: int) -> int:
+    """G, the threads that share each of n rays: 16 up to 4,096 rays, 8 up
+    to 262,144, else 1 — the fastest G at each of the large mesh's widths
+    on an H100 (PERF.md §6: 3,304 rays at G = 16, 5,120 and 52,805 at
+    G = 8, the 1,277,952-ray pool at G = 1). A few thousand rays fill the
+    card only when threads share them; at the pool's width a shared ray
+    costs its redundant slab tests and the combine."""
+    if n <= 4096:
+        return 16
+    if n <= 262144:
+        return 8
+    return 1
+
+
+def launch_blocks(n: int, g: int) -> int:
+    """Blocks of THREADS threads the kernel launches for n rays at G = g: a
+    block holds THREADS / g rays, thread t of block b serves ray
+    b * THREADS / g + t // g, and the last block masks the rays past n."""
+    return -(-n // (THREADS // g))
+
+
+def raycast_large(geo, pos, vel, exclude, staged: torch.Tensor | None = None):
     """(t_hit (N,) f32 in ps [inf if none], facet (N,) i32 [-1 if none]) of
     rays pos, vel (N, 3) f32 (any strides), exclude (N,) i32 against the
     geometry's mesh. A CPU ray takes the plain version, a CUDA ray launches
-    kernel E. `solved`, an (ceil(N / 256),) int32 CUDA tensor, receives the
-    number of chunks each block of 256 rays solved."""
+    kernel E with `launch_shape(N)` threads a ray. `staged`, an int32 CUDA
+    tensor of at least `launch_blocks(N, launch_shape(N))` elements,
+    receives the number of chunks each block staged."""
     global launches
     tabs = prep(geo)
     if pos.device.type != "cuda":
@@ -260,19 +333,20 @@ def raycast_large(geo, pos, vel, exclude, solved: torch.Tensor | None = None):
             raise ValueError(f"raycast_large: {name} must be (N, 3) float32")
     if exclude.shape != (N,) or exclude.dtype != torch.int32:
         raise ValueError("raycast_large: exclude must be (N,) int32")
-    if tabs.tab.device != pos.device or vel.device != pos.device or exclude.device != pos.device:
+    if tabs.rec is None or any(a.device != pos.device for a in (tabs.rec, vel, exclude)):
         raise ValueError("raycast_large: the rays and the mesh tables must share a device")
+    g = launch_shape(N)
+    if staged is not None and (staged.dtype != torch.int32 or staged.numel() < launch_blocks(N, g)):
+        raise ValueError("raycast_large: staged must hold one int32 per block")
     exclude = exclude.contiguous()
     t = torch.empty(N, dtype=torch.float32, device=pos.device)
     f = torch.empty(N, dtype=torch.int32, device=pos.device)
-    if solved is not None and (solved.dtype != torch.int32 or solved.numel() < -(-N // LANE_BLOCK)):
-        raise ValueError("raycast_large: solved must hold one int32 per block of 256 rays")
     lib = _cuda.library()
     err = lib.nk_raycast_large(
         _cuda.ptr(pos), _cuda.ptr(vel), pos.stride(0), pos.stride(1), vel.stride(0),
-        vel.stride(1), _cuda.ptr(exclude), N, _cuda.ptr(tabs.tab), _cuda.ptr(tabs.bbox),
-        _cuda.ptr(tabs.reach), tabs.nc, tabs.tab.shape[1], _cuda.ptr(t), _cuda.ptr(f),
-        _cuda.ptr(solved) if solved is not None else None, _cuda.stream(pos),
+        vel.stride(1), _cuda.ptr(exclude), N, _cuda.ptr(tabs.rec), _cuda.ptr(tabs.bbox),
+        _cuda.ptr(tabs.reach), tabs.nc, g, _cuda.ptr(t), _cuda.ptr(f),
+        _cuda.ptr(staged) if staged is not None else None, _cuda.stream(pos),
     )
     _cuda.check(err, "nk_raycast_large")
     launches += 1

@@ -411,12 +411,13 @@ def test_cuda_raycast_large_skip_keeps_results(cuda):
     ex = torch.as_tensor(np.concatenate(ex).astype(np.int32), device=cuda)
     tabs = rl.prep(geo)
     assert tabs.nc == 26
-    solved = torch.zeros(64, dtype=torch.int32, device=cuda)
-    tk, fk = rl.raycast_large(geo, pos, vel, ex, solved=solved)
     tp, fp = rl.raycast_large_plain(tabs, pos, vel, ex)
+    g = rl.launch_shape(len(ex))
+    staged = torch.zeros(rl.launch_blocks(len(ex), g), dtype=torch.int32, device=cuda)
+    tk, fk = rl.raycast_large(geo, pos, vel, ex, staged=staged)
     torch.cuda.synchronize()
-    print(f"chunks solved per block {float(solved.float().mean()):.3f} of {tabs.nc}")
-    assert float(solved.float().mean()) < tabs.nc / 2, solved
+    print(f"G = {g}: chunks staged per block {float(staged.float().mean()):.3f} of {tabs.nc}")
+    assert float(staged.float().mean()) < tabs.nc / 2, staged
     assert torch.equal(_bits(tk), _bits(tp)) and torch.equal(fk.cpu(), fp.cpu())
     assert int((fp >= 0).sum()) > 0.99 * len(fp)
 
@@ -605,3 +606,154 @@ def test_cuda_star_v1_step_matches_cpu(cuda, monkeypatch):
     a, b = outs
     np.testing.assert_allclose(b.T_sv.cpu().numpy(), a.T_sv.numpy(), atol=0.1)
     assert int(a.lost[-1]) == 0 and int(b.lost[-1]) == 0
+
+
+def _instantiation(name, cuda, monkeypatch):
+    """(pool, T_sv, cfg) of one kernel A instantiation at 4^3."""
+    import dataclasses
+
+    from nanokappa_torch.geometry.device import build_device_geometry
+    from nanokappa_torch.geometry.subvolumes import grid_centers
+    from nanokappa_torch.ops.megastep import mega_config
+    from nanokappa_torch.ops.raycast import raycast
+    from nanokappa_torch.sim import fused
+    from nanokappa_torch.sim.boundary_tables import slim_mirror_axis
+    from nanokappa_torch.sim.fused import event_window
+
+    if name == "box/slim/slice":
+        return _film(cuda)
+    if name == "box/full/slice":
+        monkeypatch.setattr(fused, "slim_mirror_axis", lambda *a, **k: None)
+        return _film(cuda, "full")
+    if name in ("triangle/plain/slice", "box/plain/slice"):
+        return _plain_pool(cuda, WIRE if name.startswith("triangle") else ROUGH_BOX)
+    if name == "triangle/full/slice":
+        pool16, T_sv, cfg16 = _plain_pool(cuda, WIRE)
+        pool, cfg = _crafted_full(pool16, cfg16)
+        return pool, T_sv, cfg
+    if name == "precast/slice":
+        mat, geo, btab, params, pool, T_sv = _cylinder(cuda)
+        tabs = mat.device_tables(cuda)
+        pre = torch.nonzero(pool[14] > 0.5).flatten()[::20]
+        t, f = raycast(geo, pool[0:3, pre].T, pool[3:6, pre].T, pool[12, pre].contiguous().view(torch.int32))
+        pool[11, pre] = -t - 1.0
+        pool[10, pre] = f.view(torch.float32)
+        return pool, T_sv, mega_config(geo, tabs, btab, params, event_window(geo, tabs, btab, params))
+    kw = FILM4 if "slim" in name else dict(FILM4, bound_values=(302.0, 298.0, 2.0, 2.0))
+    dom, geo, tabs, btab, params, pool, T_sv = _box_ctx(cuda, kw)
+    flip = slim_mirror_axis(geo, btab, tabs) if "slim" in name else None
+    if name.endswith("linear"):
+        params = dataclasses.replace(params, temp_interp="linear")
+        return pool, T_sv, mega_config(geo, tabs, btab, params, event_window(geo, tabs, btab, params), flip)
+    c = grid_centers(dom.mesh, np.array([16, 4, 4]))
+    gdom = dataclasses.replace(dom, subvol_type="grid", subvol_center=c,
+                               subvol_volume=np.full(len(c), dom.mesh.volume / len(c)))
+    T_sv = torch.as_tensor(302.0 - 4.0 * (c[:, 0] - c[:, 0].min()) / np.ptp(c[:, 0]),
+                           dtype=torch.float32, device=cuda)
+    cfg = mega_config(build_device_geometry(gdom, cuda), tabs, btab, params,
+                      event_window(geo, tabs, btab, params), flip)
+    return pool, T_sv, cfg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [
+    "box/slim/slice", "box/full/slice", "box/plain/slice", "triangle/plain/slice",
+    "triangle/full/slice", "precast/slice", "box/slim/linear", "box/plain/linear",
+    "box/slim/centre", "box/plain/centre",
+])
+def test_cuda_megastep_two_launches_bit_equal(cuda, name, monkeypatch):
+    """Kernel A's sums are in a fixed order (counting-sorted block sums,
+    one-block-an-output reductions) and its queued triangle casts combine
+    on a total order: two launches on copies of one pool give the same bits
+    in every output, and the counts match the twin."""
+    from nanokappa_torch.ops.megastep import drift_megastep, drift_megastep_plain
+
+    pool, T_sv, cfg = _instantiation(name, cuda, monkeypatch)
+    a, b = pool.clone(), pool.clone()
+    ra = drift_megastep(a, T_sv, True, cfg, seed=41)
+    rb = drift_megastep(b, T_sv, True, cfg, seed=41)
+    rp = drift_megastep_plain(pool.clone(), T_sv, True, cfg, seed=41)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(a), _bits(b))
+    for x, y in zip(ra, rb):
+        assert torch.equal(x.cpu().contiguous().view(torch.int32), y.cpu().contiguous().view(torch.int32))
+    assert torch.equal(ra[2], rp[2]) and torch.equal(ra[1], rp[1]), (ra[2], rp[2])
+
+
+def _tie_tables(cuda):
+    """Kernel E's tables of copies of one triangle ((0,0,0), (10,0,0),
+    (0,10,0) in z = 0) in three chunks: a ray that hits one copy hits all at
+    the same t (tests/test_torch_raycast_split.py's crafted ties)."""
+    from types import SimpleNamespace
+
+    from nanokappa_torch.ops.raycast_large import BF, LargeMeshTables
+
+    facets = [{3: 7, 90: 4, 91: 9}, {0: 2, 5: 4}, {127: 1, 64: 3}]
+    nc = len(facets)
+    tab = np.zeros((16, nc * BF), np.float32)
+    tab[0], tab[4], tab[8] = 0.1, 0.1, 1.0
+    fac = np.full(nc * BF, -1, np.int32)
+    for c, fs in enumerate(facets):
+        for k, f in fs.items():
+            fac[c * BF + k] = f
+    tab[12] = fac.view(np.float32)
+    reach = np.concatenate([np.full((3, nc), -20.0), np.full((3, nc), 20.0)]).astype(np.float32)
+    tabs = LargeMeshTables(
+        order=np.arange(nc * BF), bbox=torch.zeros((16, nc), device=cuda),
+        tab=torch.as_tensor(tab, device=cuda), reach=torch.as_tensor(reach, device=cuda),
+        rec=torch.as_tensor(np.ascontiguousarray(tab.T), device=cuda),
+    )
+    geo = SimpleNamespace()
+    geo._large_cast = tabs
+    return geo, tabs
+
+
+@pytest.mark.gpu
+def test_cuda_raycast_large_every_shape_matches_plain(cuda):
+    """Kernel E in each regime `launch_shape` picks (G = 16, 8 and 1
+    threads a ray: 3,304, 52,805 and 300,000 rays), bit for bit against its
+    twin: on the 96-sided cylinder's pool rays (vertex-aimed ones among
+    them) and on crafted ties — equal t within a chunk and across chunks, an
+    excluded facet, zero velocity components, a ray parallel to the plane
+    and one moving away."""
+    from nanokappa_torch.ops import raycast_large as rl
+
+    _, geo, _, _, pool, _ = _cylinder(cuda)
+    pos = pool[0:3].T.contiguous()
+    vel = pool[3:6].T.contiguous()
+    vel[::7, 2] = 0.0
+    ex = pool[12].contiguous().view(torch.int32).clone()
+    verts = geo.tri_origin[::3]
+    vpos = pos[: verts.shape[0]].clone()
+    vpos[:, 2] = verts[:, 2]
+    pos = torch.cat([pos, vpos])
+    vel = torch.cat([vel, (verts - vpos) / 3.0])
+    ex = torch.cat([ex, torch.full((verts.shape[0],), -1, dtype=torch.int32, device=cuda)])
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for n in (3304, 52805, 300000):
+        j = torch.arange(n, device=cuda)
+        k = j % pos.shape[0]  # the rays again, each later copy jittered
+        jitter = 0.1 * torch.rand((n, 3), generator=gen, device=cuda)
+        p = pos[k] + torch.where(j[:, None] < pos.shape[0], 0.0, jitter)
+        tp, fp = rl.raycast_large_plain(rl.prep(geo), p, vel[k], ex[k])
+        tk, fk = rl.raycast_large(geo, p, vel[k], ex[k])
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(tk), _bits(tp)) and torch.equal(fk.cpu(), fp.cpu()), n
+    tgeo, tabs = _tie_tables(cuda)
+    base_p = [[2.0, 3.0, 5.0], [2.0, 3.0, 5.0], [2.0, 3.0, 5.0], [0.0, 0.0, 5.0], [10.0, 0.0, 5.0],
+              [4.0, 4.0, 1.0], [2.0, 3.0, 5.0], [3.0, 3.0, -2.0], [1.0, 1.0, 5.0]]
+    base_v = [[0.0, 0.0, -1.0], [0.0, 0.0, -1.0], [0.0, 0.0, -1.0], [0.0, 0.0, -2.0], [-1.0, 0.0, -1.0],
+              [1.0, 1.0, -0.5], [1.0, 0.0, 0.0], [0.0, 0.0, 3.0], [0.0, 0.0, 1.0]]
+    base_e = [-1, 4, 7, -1, -1, 9, -1, 2, -1]
+    shapes = set()
+    for reps in (400, 6000, 30000):  # 3,600, 54,000 and 270,000 rays: G = 16, 8, 1
+        p = torch.tensor(base_p * reps, device=cuda)
+        v = torch.tensor(base_v * reps, device=cuda)
+        e = torch.tensor(base_e * reps, dtype=torch.int32, device=cuda)
+        tp, fp = rl.raycast_large_plain(tabs, p, v, e)
+        assert fp[:3].tolist() == [4, 7, 4]
+        tk, fk = rl.raycast_large(tgeo, p, v, e)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(tk), _bits(tp)) and torch.equal(fk.cpu(), fp.cpu()), reps
+        shapes.add(rl.launch_shape(len(e)))
+    assert shapes == set(rl.THREADS_PER_RAY)
