@@ -77,10 +77,13 @@ Needs one CUDA card. In order it:
      the lanes the next drift stops at a facet, rows perturbed; and on a
      sentinel-only buffer) and kernel C at the v1 width (1,277,952 ->
      79,872) against their twins, timed beside `index_copy_` and
-     `torch.nonzero` + fill,
- 11. splits each kernel A check's call by kernel name (torch.profiler),
-     last: a profiler session can leave hooks that add host time to every
-     later launch, and the main paths are host-bound.
+     `torch.nonzero` + fill; D also with a cold L2, beside the floor of
+     the 32-byte sectors it touches,
+ 11. splits each kernel A, C and D check's call by kernel name
+     (torch.profiler) and counts its kernel launches a call (kernel C's
+     must be 1 at every width), last: a profiler session can leave hooks
+     that add host time to every later launch, and the main paths are
+     host-bound.
 Any failed check raises (non-zero exit). The last lines are the card line,
 one JSON line with the kernels' numbers, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -234,6 +237,41 @@ def device_timed(fn, n: int = 20) -> float:
     return a.elapsed_time(b) / n
 
 
+def device_timed_cold(fn, n: int = 20) -> float:
+    """Mean milliseconds of device time per call of fn() with a cold L2
+    (50 MB on the H100): before each call, outside its timed span, a 64 MB
+    buffer is read and written; each call has its own pair of CUDA events,
+    all enqueued behind a spin kernel."""
+    import torch
+
+    flush = torch.zeros(16 << 20, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    torch.cuda._sleep(4_000_000 * n)
+    for a, b in ev:
+        flush.add_(1.0)
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in ev) / n
+
+
+def sector_floor(idx, n_valid: int, C: int, N: int) -> tuple[float, int]:
+    """(ms, sectors): kernel D's 32-byte sectors over 3.35 TB/s — the
+    sectors its stores touch (each row's distinct sectors among the valid
+    lanes), the valid prefix of the rows read and the indices read. The
+    byte bound counts 4 B a stored value; a store alone in its sector costs
+    the memory a whole sector."""
+    import torch
+
+    word = torch.arange(C, device=idx.device)[:, None] * N + idx[:n_valid].long()[None]
+    stores = int(torch.unique(word // 8).numel())
+    sectors = stores + C * -(-n_valid * 4 // 32) + -(-idx.shape[0] * 4 // 32)
+    return sectors * 32 / HBM_BYTES_PER_S * 1e3, sectors
+
+
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     """(bound_ms, bound_by): the least time the card could take."""
     t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOP_PER_S
@@ -338,11 +376,12 @@ def divergence(pool, cfg) -> tuple[float, float]:
     return float(ends.float().mean()), float(ends[:n].reshape(-1, 32).any(dim=1).float().mean())
 
 
-def launch_split(fn, calls: int = 10) -> dict[str, float]:
+def launch_split(fn, calls: int = 10, counts: dict | None = None) -> dict[str, float]:
     """Mean device microseconds per call of fn, by kernel name
     (torch.profiler); PyTorch's own kernels (the wrapper's output fills)
-    under "torch". The profiler on the card at times records no kernel
-    (an empty split): the times come from device_timed."""
+    under "torch"; `counts`, when given, receives the kernel launches per
+    call by the same names. The profiler on the card at times records no
+    kernel (an empty split): the times come from device_timed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -359,6 +398,8 @@ def launch_split(fn, calls: int = 10) -> dict[str, float]:
         name = "torch" if "at::" in e.key else kernel_name(e.key)
         if t > 0 and name and not name.startswith(("Memcpy", "Memset")):
             out[name] = round(out.get(name, 0.0) + t / calls, 2)
+            if counts is not None:
+                counts[name] = counts.get(name, 0.0) + e.count / calls
     return out
 
 
@@ -454,13 +495,17 @@ def check_megastep(name, pool_c, T_sv, cfg, seed, source_ops):
 
 
 def split_launches(recs) -> None:
-    """Each kernel A record's call split by kernel name (launch_split),
-    printed; run after every main path and every timing, since a profiler
-    session may leave hooks that add host time to later launches."""
+    """Each record's call split by kernel name (launch_split), with its
+    kernel launches a call (`per_call`), printed; run after every main path
+    and every timing, since a profiler session may leave hooks that add host
+    time to later launches."""
     for r in recs:
         if "split" in r:
-            r["split_us"] = launch_split(r.pop("split"))
-            print(f"  {r['name']}: launch split (us) {r['split_us']}", flush=True)
+            counts: dict[str, float] = {}
+            r["split_us"] = launch_split(r.pop("split"), counts=counts)
+            r["per_call"] = sum(counts.values())
+            print(f"  {r['name']}: launch split (us) {r['split_us']}, kernel launches a call "
+                  f"{r['per_call']:g}", flush=True)
 
 
 def check_compact_pool(pools, name="compact_pool"):
@@ -498,7 +543,9 @@ def check_compact_pool(pools, name="compact_pool"):
 
 def check_compact(name, masks, cap):
     """Kernel C against its twin on each mask; timed on the first, with its
-    library call (torch.nonzero plus the sentinel fill)."""
+    library call (torch.nonzero plus the sentinel fill); `split`, its call
+    to count kernel launches by (split_launches, after every main path:
+    one a call, gated)."""
     import torch
 
     from nanokappa_torch.ops import compact
@@ -525,6 +572,7 @@ def check_compact(name, masks, cap):
         event_ms=timed(lambda m: compact.compact_indices(m, cap), masks[0], 50),
         plain_ms=timed(lambda m: compact.compact_indices_plain(m, cap), masks[0], 50),
         bound_ms=b_ms, bound_by=b_by, library_ms=timed(library, masks[0], 50),
+        split=lambda: compact.compact_indices(masks[0], cap),
     )
 
 
@@ -1137,8 +1185,10 @@ def check_scatter_rows(sim, device):
     short of the step, a facet ahead), compacted by kernel C at the v1
     width, their rows gathered and perturbed (float rows shifted, int rows
     given other ids). Also a sentinel-only buffer (the pool must not move).
-    Timed beside its twin and `index_copy_` on the valid prefix. Returns
-    the records of D and of C at the v1 width."""
+    Timed beside its twin and `index_copy_` on the valid prefix, L2-warm
+    (device_timed: one target, its sectors stay in L2) and L2-cold
+    (device_timed_cold), with its sector floor beside its byte bound.
+    Returns the records of D and of C at the v1 width."""
     import torch
 
     from nanokappa_torch.ops import compact, scatter_rows as sr
@@ -1174,15 +1224,21 @@ def check_scatter_rows(sim, device):
     target = pool.clone()
     pv, rv = pidx[:n].long(), rows[:, :n].contiguous()
     b_ms, b_by = bound(4 * E + 2 * n * C * 4, 0)
+    floor_ms, sectors = sector_floor(pidx, n, C, N)
     rec_d = dict(
         name="scatter_rows[star events]", route="cuda", source="nanokappa_torch/csrc/scatter_rows.cu",
         replaces="nanokappa_tpu/ops/scatter_rows.py:123", max_abs_err=err, match="bit-exact",
         ms=device_timed(lambda: sr.scatter_rows(target, rows, pidx)),
+        cold_ms=device_timed_cold(lambda: sr.scatter_rows(target, rows, pidx)),
+        sector_floor_ms=floor_ms,
         event_ms=timed(lambda p: sr.scatter_rows(p, rows, pidx), target, 50),
         plain_ms=timed(lambda p: sr.scatter_rows_plain(p, rows, pidx), target, 20),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=timed(lambda p: p.index_copy_(1, pv, rv), target, 50),
+        split=lambda: sr.scatter_rows(target, rows, pidx),
     )
+    print(f"  scatter_rows[star events]: L2-warm {rec_d['ms']:.4f} ms, L2-cold {rec_d['cold_ms']:.4f} ms; "
+          f"sector floor {floor_ms:.4f} ms ({sectors} sectors of 32 B), byte bound {b_ms:.4f} ms", flush=True)
     return rec_d, rec_c
 
 
@@ -1593,8 +1649,10 @@ def main(device=None) -> None:
               f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
               f"{r['max_abs_err']:.3g} ({r['match']})", flush=True)
     shutil.rmtree(sim_dir, ignore_errors=True)
-    # ---- kernel A's launch splits, after every main path and timing -----------
+    # ---- the launch splits, after every main path and timing ------------------
     split_launches(list(recs.values()) + off_path + full_off)
+    for k in ("survivors", "lattice", "C_v1"):
+        checks[f"{recs[k]['name']}: one kernel launch a call"] = recs[k].get("per_call") == 1
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise SystemExit(f"chip_smoke: failed checks: {failed}")

@@ -48,7 +48,7 @@ extern "C" int nk_compact_pool(const void* pool, void* out, int C, int N,
   uint32_t* dst = static_cast<uint32_t*>(out);
   int* t = static_cast<int*>(tail);
   if (nb > 0) count_alive<<<nb, NK_BLOCK, 0, s>>>(src, N, counts);
-  nk::scan_counts<<<1, NK_SCAN, 0, s>>>(counts, nb, offsets, t, N, nullptr);
+  nk::scan_runs<<<1, NK_SCAN, 0, s>>>(counts, nb, offsets, t, N, nullptr);
   if (nb > 0) move_lanes<<<nb, NK_BLOCK, 0, s>>>(src, dst, C, N, offsets, t);
   return static_cast<int>(cudaGetLastError());
 }

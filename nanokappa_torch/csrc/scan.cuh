@@ -1,7 +1,8 @@
 // Block-scan building blocks shared by the kernels (compact.cu,
-// compact_pool.cu, megastep.cu): a per-block rank of a predicate, the
-// exclusive scan of per-block counts, fixed-order per-block segment sums and
-// the fixed-order reductions of per-block partials.
+// compact_pool.cu, megastep.cu): a per-block rank of a predicate or of a
+// word of predicates, the exclusive scan of per-block counts, fixed-order
+// per-block segment sums and the fixed-order reductions of per-block
+// partials.
 // Every helper assumes blockDim.x == NK_BLOCK and is called by all threads
 // of the block (lanes past the end of the data pass a false predicate).
 #pragma once
@@ -10,7 +11,7 @@
 #include <cuda_runtime.h>
 
 constexpr int NK_BLOCK = 256;  // threads (= lanes) per block
-constexpr int NK_SCAN = 1024;  // threads of the single-block count scan
+constexpr int NK_SCAN = 1024;  // threads of the single-block count scan (scan_runs)
 
 namespace nk {
 namespace {  // internal linkage: every .cu file includes these
@@ -72,37 +73,11 @@ __device__ __forceinline__ int block_scan(int v) {
   return v;
 }
 
-// Exclusive scan of nb per-block counts into offsets (one block of NK_SCAN
-// threads walks the counts in chunks, carrying the running total). Writes
-// the grand total to *total and min(total, cap) to *capped (either may be
-// null).
-__global__ void __launch_bounds__(NK_SCAN) scan_counts(
-    const int* __restrict__ counts, int nb, int* __restrict__ offsets,
-    int* total, int cap, int* capped) {
-  __shared__ int carry;
-  if (threadIdx.x == 0) carry = 0;
-  __syncthreads();
-  for (int base = 0; base < nb; base += NK_SCAN) {
-    const int i = base + threadIdx.x;
-    const int v = i < nb ? counts[i] : 0;
-    const int incl = block_scan<NK_SCAN>(v);
-    const int c0 = carry;
-    if (i < nb) offsets[i] = c0 + incl - v;
-    __syncthreads();
-    if (threadIdx.x == NK_SCAN - 1) carry = c0 + incl;
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    if (total) *total = carry;
-    if (capped) *capped = carry < cap ? carry : cap;
-  }
-}
-
-// The same scan in one pass (kernel A's; compact.cu and compact_pool.cu
-// still launch scan_counts): thread t sums its run of consecutive counts,
-// one block scan of the runs, then each thread writes its run's offsets.
-// Integers, so the offsets are scan_counts' own. Writes the grand total to
-// *total and min(total, cap) to *capped (either may be null).
+// Exclusive scan of nb per-block counts into offsets, in one block of
+// NK_SCAN threads (kernels A and B): thread t sums its run of consecutive
+// counts, one block scan of the runs, then each thread writes its run's
+// offsets. Writes the grand total to *total and min(total, cap) to *capped
+// (either may be null).
 __global__ void __launch_bounds__(NK_SCAN) scan_runs(
     const int* __restrict__ counts, int nb, int* __restrict__ offsets,
     int* total, int cap, int* capped) {
@@ -121,6 +96,21 @@ __global__ void __launch_bounds__(NK_SCAN) scan_runs(
     if (total) *total = incl;
     if (capped) *capped = incl < cap ? incl : cap;
   }
+}
+
+// block_rank for a word of predicates a thread (kernel C: 16 lanes a
+// thread): the exclusive rank of this thread's bit 0 among the block's set
+// bits, counted in thread order and, within a thread, from bit 0 up; the
+// block's count in *total. One block scan of the threads' popcounts.
+__device__ __forceinline__ int block_rank_bits(unsigned bits, int* total) {
+  __shared__ int block_total;
+  const int c = __popc(bits);
+  const int incl = block_scan<NK_BLOCK>(c);
+  if (threadIdx.x == NK_BLOCK - 1) block_total = incl;
+  __syncthreads();
+  *total = block_total;
+  __syncthreads();  // the shared word may be reused by the next call
+  return incl - c;
 }
 
 // Per-block count of a predicate (`__syncthreads_count`).

@@ -11,18 +11,25 @@ are ascending and unique. The port's layout is SoA — pool (C, N), rows
 (C, E) — and the pool is updated IN PLACE (the JAX kernel returns a new
 array; the port's step owns its pool and needs no copy).
 
-CUDA design (csrc/scatter_rows.cu): one thread per (update lane, row),
-rows read coalesced along E, each index read by the thread that uses it;
-unique indices mean no two threads write one address, so there are no
-atomics and no ordering, and the kernel reads the sentinel itself (no mask
-on the host, no synchronisation). Rows move as uint32 bits, so the pool's
-bitcast integer rows are never touched by float arithmetic. Not ported:
-the TPU's 16,384-lane output blocks with their `searchsorted` starts, the
+CUDA design (csrc/scatter_rows.cu): one thread per update lane, in
+64-thread blocks: the thread reads its index once and moves its lane's C
+rows 16 at a time (every load of a chunk before its stores), each row read
+coalesced along E. idx ascends, so the sentinel tail is a suffix: a thread
+whose index is >= N leaves after its index load. Unique indices mean no
+two threads write one address, so there are no atomics and no ordering,
+and the kernel reads the sentinel itself (no mask on the host, no
+synchronisation). Rows move as uint32 bits, so the pool's bitcast integer
+rows are never touched by float arithmetic. Not ported: the TPU's
+16,384-lane output blocks with their `searchsorted` starts, the
 128-aligned DMA windows, the 8-row padding and the log-shift expand
-network. What bounds it on the card: bytes — the valid prefix of the rows
-read and written (2 x n_valid x C x 4 B) and the E indices read; at the
-v1 event window (E = 79,872, C = 16) that is at most 10.5 MB, 3.1 us at
-3.35 TB/s, so launch latency sets its time.
+network. What bounds it on the card: its bytes bound is the valid prefix
+of the rows read and written (2 x n_valid x C x 4 B) and the E indices
+read — at the v1 event window (E = 79,872, C = 16) at most 10.5 MB, 3.1 us
+at 3.35 TB/s — but the pool's SoA layout (kernel A's) puts each valid
+store alone in its 32-byte sector (the star's event lanes lie ~26 apart),
+and scattered 4-byte stores run at the card's rate of store requests
+(~27-36 G sectors/s measured on the H100, whatever the thread mapping:
+PERF.md), not at its memory bandwidth.
 """
 
 from __future__ import annotations

@@ -251,8 +251,6 @@ def sample_injections(
     n_valid (host int); new res_counter; dropped (host int); props
     (cap, K) — the gathered per-(reservoir, mode) injection-table rows, so
     the caller can reuse trailing columns of an extended table)."""
-    from nanokappa_torch.ops.compact import compact_indices
-
     if params.res_gen not in ("pooled", "constant"):
         raise NotImplementedError(
             f"reservoir_gen={params.res_gen!r} is not ported yet "
@@ -284,14 +282,13 @@ def sample_injections(
         inj_dtin = dt * u5[:, 2]
         inj_pos = _facet_positions(geo, inj_res, gen, cap, dev, u2=u5[:, 3:5])
     else:
+        # the lattice's compaction already packs the valid lanes first, and
+        # every unused lane holds the sentinel's values: the JAX package's
+        # re-compaction of the valid prefix is the identity here, as it
+        # skips it for 'pooled'
         inj_res, inj_mode, inj_dtin, n_valid, dropped, new_counter = _constant_lattice(
             res_counter, rtab, params, gen, dev
         )
-        # valid lanes to the front (the lattice compaction already packed
-        # them: on this scheme the re-compaction is the identity)
-        order, _ = compact_indices(torch.arange(cap, device=dev) < n_valid, cap)
-        order = torch.clamp(order, max=cap - 1).long()
-        inj_res, inj_mode, inj_dtin = inj_res[order], inj_mode[order], inj_dtin[order]
         inj_pos = _facet_positions(geo, inj_res, gen, cap, dev)
 
     T_res = geo.res_temperature[inj_res]

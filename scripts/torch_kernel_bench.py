@@ -1,7 +1,7 @@
-"""Kernel A's and kernel E's times on the card, at the main paths' shapes,
+"""Kernels A, B, C, D and E timed on the card at the main paths' shapes,
 for one checkout of the port: the comparison of two versions in one call.
 
-    python scripts/torch_kernel_bench.py [--root DIR] [--label NAME]
+    python scripts/torch_kernel_bench.py [--root DIR] [--label NAME] [--only a,b,c,d,e]
 
 Imports `nanokappa_torch` from DIR (default: this checkout; a `git archive`
 of another commit unpacked into a git-ignored directory gives the other
@@ -25,13 +25,24 @@ version) and this checkout's chip_smoke.py helpers, builds the kernels
     aimed at vertices, some with zero velocity components or an excluded
     facet) at the large mesh's four widths, against its twin, with the
     launch shape (G threads a ray) where the checkout has one;
+  * kernel C at the main paths' four widths (the film's survivors 2,048 ->
+    512, the wire's constant lattice 1,072,476 -> 5,120, the identity at
+    inj_cap 5,120 -> 5,120 that the parent still runs, the star's v1
+    events 1,277,952 -> 79,872), each mask at its typical True count;
+  * kernel D at the star's event buffer (79,872 lanes, 48,176 ascending
+    valid ones ~26 apart, 16 rows, a 1,277,952-lane bit-hazard pool),
+    L2-warm (one target) and L2-cold (chip_smoke.device_timed_cold), with
+    its sector floor (chip_smoke.sector_floor) beside its byte bound;
+  * kernel B on a 16-row pool of 1,277,952 lanes, 78% alive;
 
 each kernel timed by its device time per call (chip_smoke.device_timed: the
 calls enqueued behind a spin kernel, so their kernels run back to back
 between the events) and by the rate of calls issued back to back between
 CUDA events (which includes the wrapper's host work where that is the
-longer); after every timing, each call split by kernel name under
-torch.profiler (last, as its hooks may outlive the session).
+longer; for B, C and D the median of 5 runs of 20 calls); after every
+timing, each call split by kernel name under torch.profiler, with its
+kernel launches a call (last, as its hooks may outlive the session). `--only` picks kernels (A and E build the 31^3
+material and their contexts, ~1 min; B, C and D need only their buffers).
 
 Prints one `bench ` line per measurement and a JSON summary line. Needs a
 CUDA card.
@@ -44,6 +55,7 @@ import dataclasses
 import importlib.util
 import json
 import os
+import statistics
 import sys
 import time
 
@@ -121,11 +133,124 @@ def bench_raycast(cs, geo, device, rows, splits):
         splits.append((row, lambda p=p, v=v, e=e: rl.raycast_large(geo, p, v, e)))
 
 
+def calls_ms(cs, fn, x, n: int = 20, reps: int = 5) -> float:
+    """The median over `reps` runs of chip_smoke.timed (n calls back to back
+    between CUDA events): a host-bound call rate swings from run to run."""
+    return statistics.median(cs.timed(fn, x, n) for _ in range(reps))
+
+
+C_WIDTHS = (  # (name, lanes, True lanes, cap)
+    ("survivors", 2048, 102, 512),
+    ("lattice", 1_072_476, 3_840, 5120),
+    ("inj_cap", 5120, 3_917, 5120),
+    ("v1 events", 1_277_952, 48_176, 79_872),
+)
+
+
+def bench_compact(cs, device, rows, splits):
+    """Kernel C at each width against its twin: device time, calls back to
+    back, the bound; its launch split queued."""
+    import numpy as np
+    import torch
+
+    from nanokappa_torch.ops import compact
+
+    rng = np.random.default_rng(11)
+    for name, n, k, cap in C_WIDTHS:
+        m = np.zeros(n, bool)
+        m[np.sort(rng.choice(n, k, replace=False)) if name != "inj_cap" else np.arange(k)] = True
+        m = torch.as_tensor(m, device=device)
+        ik, nk = compact.compact_indices(m, cap)
+        ip, npl = compact.compact_indices_plain(m, cap)
+        torch.cuda.synchronize()
+        if not (torch.equal(ik, ip) and int(nk) == int(npl)):
+            raise AssertionError(f"compact_indices[{name}] differs from its twin")
+        row = dict(name=f"compact_indices[{name}]",
+                   ms=cs.device_timed(lambda: compact.compact_indices(m, cap)),
+                   event_ms=calls_ms(cs, lambda x: compact.compact_indices(x, cap), m),
+                   bound_ms=cs.bound(n + 4 * cap + 4, 0)[0], n=n, true=k, cap=cap)
+        print("bench " + json.dumps(row), flush=True)
+        rows.append(row)
+        splits.append((row, lambda m=m, cap=cap: compact.compact_indices(m, cap)))
+
+
+def star_events(device, E=79_872, N=1_277_952, C=16, n=48_176, seed=6):
+    """The star's event buffer: a (C, N) bit-hazard pool, (C, E) rows and n
+    ascending unique lanes, then the sentinel N."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def hazard(width):
+        x = rng.normal(size=(C, width)).astype(np.float32)
+        x.view(np.int32)[[9, 10, 12, 15]] = rng.integers(-2, 300, (4, width))
+        return torch.as_tensor(x, device=device)
+
+    idx = np.full(E, N, np.int32)
+    idx[:n] = np.sort(rng.choice(N, n, replace=False))
+    return hazard(N), hazard(E), torch.as_tensor(idx, device=device), n
+
+
+def bench_scatter(cs, device, rows, splits):
+    """Kernel D at the star's event buffer against its twin: L2-warm and
+    L2-cold device time, calls back to back, byte bound and sector floor."""
+    import torch
+
+    from nanokappa_torch.ops import scatter_rows as sr
+
+    pool, upd, idx, n = star_events(device)
+    C, N = pool.shape
+    E = idx.shape[0]
+    pk, pp = pool.clone(), pool.clone()
+    sr.scatter_rows(pk, upd, idx)
+    sr.scatter_rows_plain(pp, upd, idx)
+    torch.cuda.synchronize()
+    if not torch.equal(pk.view(torch.int32), pp.view(torch.int32)):
+        raise AssertionError("scatter_rows differs from its twin")
+    floor_ms, sectors = cs.sector_floor(idx, n, C, N)
+    row = dict(name="scatter_rows[star events]", ms=cs.device_timed(lambda: sr.scatter_rows(pk, upd, idx)),
+               cold_ms=cs.device_timed_cold(lambda: sr.scatter_rows(pk, upd, idx)),
+               event_ms=calls_ms(cs, lambda p: sr.scatter_rows(p, upd, idx), pk),
+               bound_ms=cs.bound(4 * E + 2 * n * C * 4, 0)[0], sector_floor_ms=floor_ms, sectors=sectors)
+    print("bench " + json.dumps(row), flush=True)
+    rows.append(row)
+    splits.append((row, lambda: sr.scatter_rows(pk, upd, idx)))
+
+
+def bench_pool(cs, device, rows, splits):
+    """Kernel B on a 16-row, 1,277,952-lane pool against its twin."""
+    import numpy as np
+    import torch
+
+    from nanokappa_torch.ops import compact_pool
+
+    rng = np.random.default_rng(12)
+    pool = rng.normal(size=(16, 1_277_952)).astype(np.float32)
+    pool.view(np.int32)[[9, 10, 12, 15]] = rng.integers(-2, 300, (4, pool.shape[1]))
+    pool[14] = (rng.random(pool.shape[1]) < 0.78).astype(np.float32)
+    pool = torch.as_tensor(pool, device=device)
+    out = torch.empty_like(pool)
+    a, ta = compact_pool.compact_pool(pool, out)
+    b, tb = compact_pool.compact_pool_plain(pool)
+    torch.cuda.synchronize()
+    if int(ta) != int(tb) or not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        raise AssertionError("compact_pool differs from its twin")
+    row = dict(name="compact_pool[16 rows]", ms=cs.device_timed(lambda: compact_pool.compact_pool(pool, out)),
+               event_ms=calls_ms(cs, lambda p: compact_pool.compact_pool(p, out), pool),
+               bound_ms=cs.bound(2 * 16 * pool.shape[1] * 4, 0)[0])
+    print("bench " + json.dumps(row), flush=True)
+    rows.append(row)
+    splits.append((row, lambda: compact_pool.compact_pool(pool, out)))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--label", default="")
+    ap.add_argument("--only", default="a,b,c,d,e", help="kernels to time, comma-separated")
     args = ap.parse_args()
+    only = set(args.only.lower().split(","))
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
 
@@ -133,14 +258,7 @@ def main() -> None:
         raise SystemExit("torch_kernel_bench: needs a CUDA card")
     cs = _chip_smoke()
     import nanokappa_torch
-    from nanokappa_torch.geometry import stl
-    from nanokappa_torch.material import synthetic_material
     from nanokappa_torch.ops import _cuda
-    from nanokappa_torch.ops.megastep import mega_config
-    from nanokappa_torch.sim.boundary_tables import slim_mirror_axis
-    from nanokappa_torch.sim.fused import event_window
-    from nanokappa_torch.sim.state import C_ALIVE, C_CF, STALE, init_state
-    from nanokappa_torch.sim.step import build_step
 
     card = cs.card_line()
     print(f"{card}; package {os.path.dirname(nanokappa_torch.__file__)} ({args.label})", flush=True)
@@ -148,10 +266,48 @@ def main() -> None:
     _cuda.library(verbose=True)
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     device = torch.device("cuda:0")
-    mat = synthetic_material(mesh=(cs.MESH, cs.MESH, cs.MESH))
-    tabs = mat.device_tables(device)
     rows: list[dict] = []
     splits: list = []
+    if "c" in only:
+        bench_compact(cs, device, rows, splits)
+    if "d" in only:
+        bench_scatter(cs, device, rows, splits)
+    if "b" in only:
+        bench_pool(cs, device, rows, splits)
+    if "a" in only:
+        bench_kernel_a(cs, device, rows, splits)
+    if "e" in only:
+        from nanokappa_torch.geometry.device import build_device_geometry
+        from nanokappa_torch.geometry.domain import build_domain
+
+        b_geo = build_device_geometry(build_domain(**dict(cs.BIGMESH, subvolumes=("slice", 1, 2))), device)
+        bench_raycast(cs, b_geo, device, rows, splits)
+    for row, fn in splits:
+        counts: dict[str, float] = {}
+        row["split_us"] = cs.launch_split(fn, counts=counts)
+        row["per_call"] = sum(counts.values())
+        print(f"bench split {row['name']}: {row['split_us']}, kernel launches a call {row['per_call']:g}",
+              flush=True)
+    print(json.dumps({"label": args.label, "card": card, "rows": rows}), flush=True)
+
+
+def bench_kernel_a(cs, device, rows, splits):
+    """Kernel A's branches on the 31^3 material's pools (see the module
+    docstring)."""
+    import tempfile
+
+    import torch
+
+    from nanokappa_torch.geometry import stl
+    from nanokappa_torch.material import synthetic_material
+    from nanokappa_torch.ops.megastep import mega_config
+    from nanokappa_torch.sim.boundary_tables import slim_mirror_axis
+    from nanokappa_torch.sim.fused import event_window
+    from nanokappa_torch.sim.state import C_ALIVE, C_CF, STALE, init_state
+    from nanokappa_torch.sim.step import build_step
+
+    mat = synthetic_material(mesh=(cs.MESH, cs.MESH, cs.MESH))
+    tabs = mat.device_tables(device)
 
     def ctx(kw, res_gen, scat="velocity", **prm):
         dom, geo, btab = cs.build_ctx(mat, kw, device, scat)
@@ -197,8 +353,6 @@ def main() -> None:
     bench_megastep(cs, "k film linear", k_pool, k[4].T_sv, mega_config(k[1], tabs, k[2], k[3], k[5]), 4, 0, rows, splits)
     del k, k_pool
 
-    import tempfile
-
     stl_path = os.path.join(tempfile.mkdtemp(prefix="kernel_bench_plate_"), "plate.stl")
     stl.save_stl(cs.perforated_plate(), stl_path)
     p = ctx(dict(cs.PLATE, geometry=stl_path, subvolumes=("grid", 2, 2, 2)), "constant")
@@ -209,16 +363,6 @@ def main() -> None:
 
     del p, p_pool
     torch.cuda.empty_cache()
-
-    from nanokappa_torch.geometry.device import build_device_geometry
-    from nanokappa_torch.geometry.domain import build_domain
-
-    b_geo = build_device_geometry(build_domain(**dict(cs.BIGMESH, subvolumes=("slice", 1, 2))), device)
-    bench_raycast(cs, b_geo, device, rows, splits)
-    for row, fn in splits:
-        row["split_us"] = cs.launch_split(fn)
-        print(f"bench split {row['name']}: {row['split_us']}", flush=True)
-    print(json.dumps({"label": args.label, "card": card, "rows": rows}), flush=True)
 
 
 if __name__ == "__main__":

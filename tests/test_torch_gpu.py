@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import compact_cases
+
 INT_ROWS = [9, 10, 12, 14, 15, 16]  # mode, facet, on-facet, alive, sv, partner
 FLOAT_ROWS = [0, 1, 2, 3, 4, 5, 6, 7, 8, 11, 13, 17]
 
@@ -95,6 +97,85 @@ def test_cuda_compact_matches_plain(cuda):
         a, na = compact_indices(m.to(cuda), cap)
         b, nb = compact_indices_plain(m, cap)
         assert torch.equal(a.cpu(), b) and int(na) == int(nb)
+
+
+def _compact_ref(m, cap):
+    from nanokappa_torch.ops.compact import compact_indices_plain
+
+    return compact_indices_plain(m.cpu(), cap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(compact_cases()))
+def test_cuda_compact_cases_one_launch(cuda, name):
+    """Kernel C at the main paths' four widths and the edges: bit-exact,
+    one launch a call on the counter, idx and n_valid views of one buffer."""
+    from nanokappa_torch.ops import compact
+
+    mask, cap = compact_cases()[name]
+    m = torch.as_tensor(mask).to(cuda)
+    before = compact.launches
+    idx, nv = compact.compact_indices(m, cap)
+    assert compact.launches == before + 1
+    ref, rn = _compact_ref(m, cap)
+    assert torch.equal(idx.cpu(), ref) and int(nv) == int(rn)
+    assert idx.data_ptr() + 4 * cap == nv.data_ptr()
+
+
+@pytest.mark.gpu
+def test_cuda_compact_odd_address_slices(cuda):
+    """Masks starting at every address mod 16 and of ragged lengths (the
+    kernel's byte loads at the two ends)."""
+    from nanokappa_torch.ops.compact import compact_indices
+
+    base = torch.rand(70_037, generator=torch.Generator().manual_seed(3)) < 0.4
+    b = base.to(cuda)
+    for lo, hi in ((3, None), (1, -1), (15, -7), (16, -16), (5, 4_100), (7, 8)):
+        m = b[lo:hi]
+        for cap in (512, 30_000, m.shape[0] + 3):
+            idx, nv = compact_indices(m, cap)
+            ref, rn = _compact_ref(m, cap)
+            assert torch.equal(idx.cpu(), ref) and int(nv) == int(rn), (lo, hi, cap)
+
+
+@pytest.mark.gpu
+def test_cuda_compact_200_alternating_calls(cuda):
+    """200 calls back to back, alternating widths, one stream: each call
+    finds the scratch its predecessor cleared (the self-reset)."""
+    from nanokappa_torch.ops import compact
+
+    cases = [(torch.as_tensor(m).to(cuda), cap) for m, cap in compact_cases().values()]
+    before = compact.launches
+    outs = [compact.compact_indices(*cases[k % len(cases)]) for k in range(200)]
+    assert compact.launches == before + 200
+    for k, (idx, nv) in enumerate(outs):
+        m, cap = cases[k % len(cases)]
+        ref, rn = _compact_ref(m, cap)
+        assert torch.equal(idx.cpu(), ref) and int(nv) == int(rn), k
+
+
+@pytest.mark.gpu
+def test_cuda_compact_graph_replay(cuda):
+    """Kernel C captured in a CUDA graph after a warm-up call, replayed on
+    changed mask contents: the twin's output every time (the scratch resets
+    on the device, so a replay needs nothing from the host)."""
+    from nanokappa_torch.ops.compact import compact_indices
+
+    n, cap = 1_277_952, 79_872
+    m = torch.zeros(n, dtype=torch.bool, device=cuda)
+    compact_indices(m, cap)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        idx, nv = compact_indices(m, cap)
+    gen = torch.Generator().manual_seed(9)
+    for p in (0.0377, 0.2, 0.001):
+        host = torch.rand(n, generator=gen) < p
+        m.copy_(host)
+        g.replay()
+        torch.cuda.synchronize()
+        ref, rn = _compact_ref(host, cap)
+        assert torch.equal(idx.cpu(), ref) and int(nv) == int(rn), p
 
 
 @pytest.mark.gpu
@@ -565,6 +646,51 @@ def test_cuda_scatter_rows_matches_plain(cuda, n, e, nval):
     assert sr.launches == before + 1
     ref = sr.scatter_rows_plain(pool.clone(), rows, idx)
     assert torch.equal(_bits(out), _bits(ref))
+
+
+def _star_events(E, seed=6):
+    """The star's event buffer shape: a (16, 1,277,952) bit-hazard pool,
+    48,176 ascending unique lanes (~26 apart) then the sentinel N, E lanes."""
+    from torch_parity import hazard_pool
+
+    rng = np.random.default_rng(seed)
+    N, C, n = 1_277_952, 16, 48_176
+    pool = hazard_pool(rng, C, N)
+    rows = hazard_pool(rng, C, E)
+    idx = np.full(E, N, np.int32)
+    idx[:n] = np.sort(rng.choice(N, n, replace=False))
+    return torch.as_tensor(pool), torch.as_tensor(rows), torch.as_tensor(idx)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E", [79_872, 79_871])
+def test_cuda_scatter_rows_star_shape(cuda, E):
+    """Kernel D at the star's shape, and with E not a multiple of 4, then
+    on a sentinel-only buffer, which must leave the pool untouched."""
+    from nanokappa_torch.ops import scatter_rows as sr
+
+    pool, rows, idx = _star_events(E)
+    before = sr.launches
+    out = sr.scatter_rows(pool.to(cuda), rows.to(cuda), idx.to(cuda))
+    assert sr.launches == before + 1
+    assert torch.equal(_bits(out), _bits(sr.scatter_rows_plain(pool.clone(), rows, idx)))
+    sent = torch.full((E,), pool.shape[1], dtype=torch.int32, device=cuda)
+    out = sr.scatter_rows(pool.to(cuda), rows.to(cuda), sent)
+    assert torch.equal(_bits(out), _bits(pool))
+
+
+@pytest.mark.gpu
+def test_cuda_compact_pool_full_width(cuda):
+    """Kernel B on its offsets from nk::scan_runs at the pool's width
+    (1,277,952 lanes, 4,992 block counts: 5 a scan thread)."""
+    from nanokappa_torch.ops.compact_pool import compact_pool, compact_pool_plain
+    from torch_parity import hazard_pool
+
+    pool = torch.as_tensor(hazard_pool(np.random.default_rng(7), 16, 1_277_952, p_alive=0.78))
+    a, ta = compact_pool(pool.to(cuda))
+    b, tb = compact_pool_plain(pool)
+    assert int(ta) == int(tb)
+    assert torch.equal(_bits(a), _bits(b))
 
 
 @pytest.mark.gpu

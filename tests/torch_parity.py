@@ -317,3 +317,22 @@ def scatter_case(n, e, nval, C=16, seed=0):
     elif nval:
         idx[:nval] = np.sort(rng.choice(n, nval, replace=False))
     return pool, rows, idx
+
+
+def compact_cases() -> dict:
+    """Kernel C's masks and caps: the main paths' four widths (the film's
+    survivors, the wire's constant lattice, the identity at inj_cap, the
+    star's v1 events, each at its typical True share) and the edges."""
+    rng = np.random.default_rng(8)
+    return {
+        "film survivors 2048->512": (rng.random(2048) < 0.3, 512),
+        "wire lattice 1072476->5120": (rng.random(1_072_476) < 0.0036, 5120),
+        "inj_cap 5120->5120": (np.arange(5120) < 3917, 5120),
+        "star v1 1277952->79872": (rng.random(1_277_952) < 48_176 / 1_277_952, 79_872),
+        "n=1": (np.ones(1, bool), 4),
+        "n=4096": (rng.random(4096) < 0.5, 4096),
+        "n=4097": (rng.random(4097) < 0.5, 1024),
+        "all True": (np.ones(40_000, bool), 50_000),
+        "all False": (np.zeros(40_000, bool), 512),
+        "count > cap": (rng.random(300_000) < 0.2, 9_000),
+    }
