@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (`nanokappa_torch`).
 
-    python3 chip_smoke.py     # film, nanowire, k films, plate, large mesh, star: 1e6 particles, 31^3 table
+    python3 chip_smoke.py     # film, nanowire, k films, plate, large mesh, star, reservoir
+                              # schemes, corrugated wire: 1e6 particles, 31^3 table
 
 Needs one CUDA card. In order it:
   1. prints the card's name and power limit (nvidia-smi),
@@ -79,7 +80,21 @@ Needs one CUDA card. In order it:
      79,872) against their twins, timed beside `index_copy_` and
      `torch.nonzero` + fill; D also with a cold L2, beside the floor of
      the 32-byte sectors it touches,
- 11. splits each kernel A, C and D check's call by kernel name
+ 11. drives three configurations through the driver entry for 300 steps
+     each at 10^6 particles, each with its physics gates, its ms/step,
+     updates/s, set-up time and driver phases: the Ge film (BASELINE config
+     2, the synthetic 31^3 Ge table) under 'fixed_rate' (its mean
+     injections a step within 5 sigma of sum(enter_prob)), then kernel C on
+     a 'fixed_rate' lattice of its tables; the bench film under
+     'one_to_one' (one sub-block of single steps on a copy of its state:
+     every step injects the previous step's n_leaving, clipped at
+     inj_cap // R, the clip counted), then kernel C on its (R, inj_cap // R)
+     blocks; each film's ms/step under its scheme and under 'constant' /
+     'pooled' on copies of its state; and the corrugated wire of
+     examples/corrugated_wire.txt (40 wall-table rows, kernel A's partner
+     mask in two words), then kernel A on its pool against its twin and the
+     rough hits on rows >= 32 split into specular and diffuse,
+ 12. splits each kernel A, C and D check's call by kernel name
      (torch.profiler) and counts its kernel launches a call (kernel C's
      must be 1 at every width), last: a profiler session can leave hooks
      that add host time to every later launch, and the main paths are
@@ -155,6 +170,13 @@ STAR_FILE = "examples/voronoi_star.txt"
 STAR_STEPS = 500
 STAR_REASON = "temp_interp='radial' on voronoi subvolumes needs the XLA path"
 V1_FILM_STEPS = 100  # the bench film on the v1 step, against the v2 film
+# the reservoir schemes and the partner mask in words (300 steps each,
+# through the driver entry): the Ge film (examples/film_ge.txt's box,
+# slices and walls: BASELINE config 2) under 'fixed_rate', the bench film
+# under 'one_to_one', and the corrugated wire of
+# examples/corrugated_wire.txt (40 wall-table rows, the k model)
+NEW_STEPS = 300
+CORR_FILE = "examples/corrugated_wire.txt"
 
 
 def card_line() -> str:
@@ -1067,17 +1089,22 @@ def bigmesh_main(mat, card, device):
 
 
 def star_argv(folder: str, device) -> list[str]:
-    """examples/voronoi_star.txt as written, with the synthetic material
+    """examples/voronoi_star.txt as written (example_argv), STAR_STEPS steps."""
+    return example_argv(STAR_FILE, folder, device, STAR_STEPS)
+
+
+def example_argv(name: str, folder: str, device, steps: int) -> list[str]:
+    """A parameter file of examples/ as written, with the synthetic material
     (the card's machine has no h5py to read a written one: Simulation takes
-    the 31^3 Material instead), 10^6 particles, STAR_STEPS steps, the bench's
+    the 31^3 Material instead), 10^6 particles, `steps` steps, the bench's
     1.25 pool margin and seed, the results under `folder`."""
     import os
 
     here = os.path.dirname(os.path.abspath(__file__))
-    with open(os.path.join(here, STAR_FILE)) as f:
+    with open(os.path.join(here, name)) as f:
         words = f.read().split()
     swap = {"--mat_folder": ["."], "--hdf_file": ["synthetic"], "--poscar_file": ["synthetic"],
-            "--particles": ["total", f"{PARTICLES:.0f}"], "--iterations": [str(STAR_STEPS)],
+            "--particles": ["total", f"{PARTICLES:.0f}"], "--iterations": [str(steps)],
             "--results_folder": [folder], "--output": ["screen"]}
     out, i = [], 0
     while i < len(words):
@@ -1370,6 +1397,307 @@ def bigmesh_kernel_checks(sim, device):
     return recs
 
 
+def driver_path(tag, make_argv, mat, card, steps):
+    """One configuration through the driver entry a user runs,
+    `Simulation(read_args(argv), material=mat).run()`, with kernel A's, B's
+    and C's launch counters zeroed just before the Simulation is built and
+    read after its run, and every sample_injections call of the step logged
+    (n_valid, dropped: host ints, no device read). Prints the configuration,
+    T_sv, the population and losses, ms/step and updates/s over the
+    device_step time of the last 2 of its 100-step blocks beside the card,
+    the set-up time and the driver's phases. Returns (sim, its folder,
+    launches, stats)."""
+    import tempfile
+
+    import torch
+
+    from nanokappa_torch.driver import Simulation
+    from nanokappa_torch.io.config import read_args
+    from nanokappa_torch.ops import compact, compact_pool, megastep
+    from nanokappa_torch.sim import fused
+    from nanokappa_torch.sim.fused import event_window
+
+    log = []
+    sample = fused.sample_injections
+
+    def logged(*a, **k):
+        out = sample(*a, **k)
+        log.append((out[1], out[3]))
+        return out
+
+    mods = (megastep, compact_pool, compact)
+    for m in mods:
+        m.launches = 0
+    t0 = time.perf_counter()
+    td = tempfile.mkdtemp(prefix=f"chip_smoke_{tag.replace(' ', '_')}_")
+    fused.sample_injections = logged
+    try:
+        sim = Simulation(read_args(make_argv(td)), material=mat)
+        t_setup = time.perf_counter() - t0
+        sim.run(verbose=False)
+        torch.cuda.synchronize()
+    finally:
+        fused.sample_injections = sample
+    wall = time.perf_counter() - t0
+    launches = {m.__name__.rsplit(".", 1)[1]: m.launches for m in mods}
+
+    tm = sim.timer
+    row = sim.window[-1]
+    n0, n_alive = sim.n_p_target, int(row["N_p"])
+    steps_t = tm.calls["device_step"][-2:]
+    ms = sum(steps_t) / 200 * 1e3
+    evt = event_window(sim.geo, sim.mtab, sim.btab, sim.params)
+    events = sim.state.kernel_events.tolist()
+    print(f"{tag}: {sim.geo.n_facets} facets, {sim.geo.n_subvols} {sim.geo.subvol_type} subvolumes, "
+          f"layout {sim.state.layout}, reservoir_gen {sim.params.res_gen}, scattering "
+          f"{sim.params.scat_model}, {sim.btab.n_rows} boundary-table rows, {n0} particles, pool "
+          f"{sim.params.n_cap}, inj_cap {sim.params.inj_cap}, c_max {sim.params.c_max}, evt_cap {evt} "
+          f"(regrows {sim.evt_regrows})", flush=True)
+    print(f"{tag}: T_sv {[round(float(t), 3) for t in row['T']]}", flush=True)
+    print(f"{tag}: N_p {n_alive} (start {n0}), lost {row['lost_split'].tolist()}, frozen "
+          f"{row['frozen']}, escaped {sim.n_escaped_total}, launches {launches}, in-kernel diffuse "
+          f"{events[0]}, flagged specular exports {events[1]}", flush=True)
+    print(f"{tag}: {n_alive * 200 / sum(steps_t):.4g} updates/s ({ms:.3f} ms/step, device_step of the "
+          f"last 2 blocks) on {card}; driver wall {wall:.1f} s (setup {t_setup:.1f} s)", flush=True)
+    print(f"{tag}: " + tm.report().replace("\n", f"\n{tag}: "), flush=True)
+    stats = dict(n0=n0, n_alive=n_alive, lost=row["lost_split"], T=row["T"], frozen=int(row["frozen"]),
+                 events=events, ms=ms, injections=log, steps=sim.current_timestep == steps)
+    return sim, td, launches, stats
+
+
+def common_gates(tag, st, launches, T_lo, T_hi, stuck_gate=None):
+    """The gates every new path shares: nothing dropped or defective (or
+    nothing lost at all where `stuck_gate` is None), the population within
+    5%, T_sv inside (T_lo, T_hi) and falling hot to cold, kernels A and C
+    launched, every step run."""
+    import numpy as np
+
+    lost, T, n0 = st["lost"], st["T"], st["n0"]
+    checks = {
+        f"{tag}: population within 5%": abs(st["n_alive"] - n0) <= 0.05 * n0,
+        f"{tag}: T_sv in ({T_lo:g}, {T_hi:g})": bool(((T > T_lo) & (T < T_hi)).all()),
+        f"{tag}: T_sv falling hot to cold": bool((np.diff(T) < 0).all()),
+        f"{tag}: A, C launched": launches["megastep"] > 0 and launches["compact"] > 0,
+        f"{tag}: {NEW_STEPS} steps run": st["steps"],
+    }
+    if stuck_gate is None:
+        checks[f"{tag}: lost == 0"] = sum(lost) == 0
+    else:
+        checks[f"{tag}: nothing dropped or defective"] = lost[0] == 0 and lost[2] == 0
+        checks[f"{tag}: k_max-stuck <= {stuck_gate:g} per particle-step"] = (
+            lost[1] <= stuck_gate * n0 * NEW_STEPS
+        )
+        checks[f"{tag}: frozen under 1% of N"] = st["frozen"] < 0.01 * n0
+    return checks
+
+
+def fork(state):
+    """A copy of a state that a runner may advance without touching the
+    original (the pool is the only tensor a step writes in place)."""
+    import dataclasses
+
+    return dataclasses.replace(state, pool=state.pool.clone())
+
+
+def scheme_ms(sim, schemes, card):
+    """ms/step of each reservoir scheme on copies of the run's final state,
+    one warm-up and two timed 100-step blocks each, in turns (a, b, a, b).
+    Returns {scheme: ms/step}."""
+    import dataclasses
+
+    import torch
+
+    from nanokappa_torch.sim.reservoir import autosize_c_max
+    from nanokappa_torch.sim.step import build_step
+
+    runs = {}
+    for g in schemes:
+        prm = dataclasses.replace(sim.params, res_gen=g, c_max=autosize_c_max(sim.rtab))
+        runs[g] = [build_step(sim.geo, sim.mtab, sim.btab, sim.rtab, prm, n_inner=10, n_outer=10),
+                   fork(sim.state)]
+        runs[g][0](runs[g][1])
+    torch.cuda.synchronize()
+    ms = {g: [] for g in schemes}
+    for _ in range(2):
+        for g in schemes:
+            t0 = time.perf_counter()
+            runs[g][0](runs[g][1])
+            torch.cuda.synchronize()
+            ms[g].append((time.perf_counter() - t0) * 10.0)
+    out = {g: sum(v) / len(v) for g, v in ms.items()}
+    print("reservoir schemes on one state: " + ", ".join(
+        f"{g} {out[g]:.3f} ms/step ({', '.join(f'{x:.3f}' for x in ms[g])})" for g in schemes
+    ) + f" on {card}", flush=True)
+    return out
+
+
+def ge_fixed_rate_main(card, device):
+    """The Ge film (BASELINE config 2: examples/film_ge.txt's box, slices
+    and walls, the synthetic 31^3 Ge table) under 'fixed_rate' through the
+    driver; then kernel C on a 'fixed_rate' lattice of its tables, and the
+    step's ms under 'fixed_rate' and 'constant' on its state. Returns
+    (launches, checks, C's record)."""
+    import numpy as np
+    import torch
+
+    from nanokappa_torch.material import synthetic_material
+
+    t0 = time.perf_counter()
+    mat = synthetic_material(mesh=(MESH, MESH, MESH), preset="Ge")
+    print(f"Ge film: the 31^3 Ge table built in {time.perf_counter() - t0:.1f} s", flush=True)
+    sim, td, launches, st = driver_path(
+        "Ge film fixed_rate", lambda d: cli_argv(FILM, d, device, NEW_STEPS, "fixed_rate"), mat, card,
+        NEW_STEPS,
+    )
+    ep = sim.rtab.enter_prob_host.astype(np.float64)
+    frac = ep - np.floor(ep)
+    inj = np.array([n + d for n, d in st["injections"]], dtype=np.float64)
+    sigma = np.sqrt((frac * (1.0 - frac)).sum() / len(inj))
+    print(f"Ge film fixed_rate: injections a step {inj.mean():.3f} over {len(inj)} steps against "
+          f"sum(enter_prob) {ep.sum():.3f} (sigma of the mean {sigma:.4f}: "
+          f"{(inj.mean() - ep.sum()) / sigma:+.2f} sigma), dropped {sum(d for _, d in st['injections'])}",
+          flush=True)
+    checks = common_gates("Ge film fixed_rate", st, launches, 298.0, 302.0)
+    checks["Ge film fixed_rate: mean injections a step within 5 sigma of sum(enter_prob)"] = (
+        abs(inj.mean() - ep.sum()) <= 5.0 * sigma and len(inj) == NEW_STEPS
+    )
+    # kernel C at the lattice: one 'fixed_rate' draw of this run's tables
+    R, M = sim.rtab.enter_prob.shape
+    c_max, cap = sim.params.c_max, sim.params.inj_cap
+    g = torch.Generator(device=device).manual_seed(11)
+    epd = sim.rtab.enter_prob.reshape(-1)
+    fixed = torch.floor(epd)
+    counts = (fixed + (torch.rand(R * M, generator=g, device=device) <= epd - fixed).float()).int()
+    lattice = (counts[None, :] > torch.arange(c_max, device=device)[:, None]).reshape(-1)
+    rec = check_compact("compact_indices[fixed_rate lattice]", [lattice], cap)
+    print(f"  {rec['name']}: {c_max} x {R} x {M} = {lattice.numel()} lanes -> {cap}", flush=True)
+    scheme_ms(sim, ("fixed_rate", "constant"), card)
+    shutil.rmtree(td, ignore_errors=True)
+    return launches, checks, rec
+
+
+def si_one_to_one_main(mat, card, device):
+    """The bench film under 'one_to_one' through the driver; then one
+    sub-block of 10 single steps on a copy of its state, whose outputs must
+    show every step injecting the previous step's n_leaving, clipped at
+    inj_cap // R a reservoir, the clip counted as dropped; kernel C on the
+    (R, inj_cap // R) blocks of its n_leaving; and the step's ms under
+    'one_to_one' and 'pooled' on its state. Returns (launches, checks, C's
+    record)."""
+    import numpy as np
+    import torch
+
+    from nanokappa_torch.sim.step import build_step
+
+    tag = "film one_to_one"
+    sim, td, launches, st = driver_path(
+        tag, lambda d: cli_argv(FILM, d, device, NEW_STEPS, "one_to_one"), mat, card, NEW_STEPS,
+    )
+    checks = common_gates(tag, st, launches, 298.0, 302.0)
+    R, cap = sim.geo.n_reservoirs, sim.params.inj_cap
+    per = cap // R
+    state = fork(sim.state)
+    n_prev = state.n_leaving.cpu().numpy().astype(np.int64)
+    N_prev = int(state.alive.sum())
+    lost_prev = state.lost.cpu().numpy().astype(np.int64)
+    run1 = build_step(sim.geo, sim.mtab, sim.btab, sim.rtab, sim.params, n_inner=1, n_outer=10)
+    _, out = run1(state)
+    N_p = np.concatenate([[N_prev], out.N_p.cpu().numpy()])
+    leave = np.concatenate([n_prev[None], out.n_leaving.cpu().numpy()]).astype(np.int64)
+    lost = np.concatenate([lost_prev[None], out.lost_split.cpu().numpy()]).astype(np.int64)
+    injected = np.diff(N_p) + leave[1:].sum(1) + np.diff(lost[:, 1] + lost[:, 2])
+    expect = np.minimum(leave[:-1], per).sum(1)
+    dropped = np.diff(lost[:, 0])
+    print(f"{tag}: one sub-block of single steps: injected {injected.tolist()}, the previous "
+          f"n_leaving clipped at {per} {expect.tolist()}, dropped {dropped.tolist()} (n_leaving "
+          f"{leave[:-1].sum(1).tolist()})", flush=True)
+    checks[f"{tag}: every step injects the previous n_leaving, clipped at inj_cap // R"] = bool(
+        (injected == expect).all() and expect.sum() > 0
+    )
+    checks[f"{tag}: the clip counted as dropped"] = bool((dropped == leave[:-1].sum(1) - expect).all())
+    # kernel C at the (R, per) blocks of the run's last n_leaving
+    lane = torch.arange(R * per, device=device)
+    blocks = (lane % per) < sim.state.n_leaving.to(device)[lane // per]
+    rec = check_compact("compact_indices[one_to_one blocks]", [blocks], cap)
+    print(f"  {rec['name']}: {R} x {per} = {blocks.numel()} lanes -> {cap}", flush=True)
+    scheme_ms(sim, ("one_to_one", "pooled"), card)
+    shutil.rmtree(td, ignore_errors=True)
+    return launches, checks, rec
+
+
+def rough_row_share(pool, T_sv, cfg, geo, btab, seeds=(1, 2, 3)):
+    """(specular, diffuse) hits on wall-table rows >= 32 over one kernel A
+    launch per seed on copies of `pool`: a flagged lane exports with
+    C_TCOLL = -2 and its facet in C_CF; a diffused lane stays with a new
+    mode and its facet in C_ONF."""
+    import torch
+
+    from nanokappa_torch.ops import megastep
+    from nanokappa_torch.sim.fused import dkern_facet_tables
+    from nanokappa_torch.sim.state import C_ALIVE, C_CF, C_MODE, C_ONF, C_TCOLL
+
+    row_of = torch.as_tensor(dkern_facet_tables(geo, btab)["facet_row"], device=pool.device)
+    F = row_of.shape[0]
+
+    def rows(facets):
+        f = facets.long()
+        return torch.where((f >= 0) & (f < F), row_of[f.clamp(0, F - 1)], -1)
+
+    spec = diff = 0
+    for seed in seeds:
+        p = pool.clone()
+        rx, _, counts, _, _ = megastep.drift_megastep(p, T_sv, True, cfg, seed=seed)
+        k = int(counts[2])
+        flagged = rx[C_TCOLL, :k] < -1.5
+        spec += int((rows(rx[C_CF, :k].view(torch.int32))[flagged] >= 32).sum())
+        changed = (p[C_ALIVE] > 0.5) & (p[C_MODE].view(torch.int32) != pool[C_MODE].view(torch.int32))
+        diff += int((rows(p[C_ONF].view(torch.int32))[changed] >= 32).sum())
+    return spec, diff
+
+
+def corrugated_main(mat, card, device):
+    """The corrugated wire of examples/corrugated_wire.txt as written
+    through the driver: 120 triangles (kernel A's cast), 40 wall-table rows
+    (the partner mask in two words), the k model and 'constant' reservoirs;
+    then kernel A on its pool against its twin, and the rough hits on rows
+    >= 32 split into specular and diffuse over three launches. Returns
+    (launches, checks, A's record)."""
+    import torch
+
+    from nanokappa_torch.ops.megastep import mega_config
+    from nanokappa_torch.sim.fused import event_window
+    from nanokappa_torch.sim.state import C_ALIVE, C_CF, STALE
+
+    tag = "corrugated wire"
+    sim, td, launches, st = driver_path(
+        tag, lambda d: example_argv(CORR_FILE, d, device, NEW_STEPS), mat, card, NEW_STEPS,
+    )
+    cfg = mega_config(sim.geo, sim.mtab, sim.btab, sim.params,
+                      event_window(sim.geo, sim.mtab, sim.btab, sim.params))
+    corr = sim.btab._host["corr"]
+    cov = [round(float((corr[r] >= 0).mean()), 3) for r in range(corr.shape[0])]
+    print(f"{tag}: {sim.geo.tri_origin.shape[0]} triangles, btab.n_rows {sim.btab.n_rows}, partner "
+          f"mask words W = {cfg.cmask_w}, specular-partner coverage per row {cov}", flush=True)
+    checks = common_gates(tag, st, launches, 295.0, 305.0, stuck_gate=1e-6)
+    checks.update({
+        f"{tag}: more than 32 wall-table rows": sim.btab.n_rows > 32,
+        f"{tag}: the partner mask in 2 words": cfg.cmask_w == 2 and cfg.dkern,
+        f"{tag}: in-kernel diffuse re-emissions > 0": st["events"][0] > 0,
+    })
+    pool = with_fresh(sim.state.pool, device)
+    n_fresh = int(((pool[C_CF].view(torch.int32) == STALE) & (pool[C_ALIVE] > 0.5)).sum())
+    spec, diff = rough_row_share(pool, sim.state.T_sv, cfg, sim.geo, sim.btab)
+    share = spec / max(1, spec + diff)
+    print(f"{tag}: rough hits on rows >= 32 over 3 launches on its pool: {spec} specular, {diff} "
+          f"diffuse (specular share {share:.4g})", flush=True)
+    checks[f"{tag}: specular share of the hits on rows >= 32 in (0, 1)"] = 0.0 < share < 1.0
+    rec = check_megastep("drift_megastep[corrugated wire, 2 mask words]", pool, sim.state.T_sv, cfg, 3,
+                         n_fresh * 45 * cfg.tris.shape[0])
+    del pool
+    shutil.rmtree(td, ignore_errors=True)
+    return launches, checks, rec
+
+
 def main(device=None) -> None:
     import numpy as np
     import torch
@@ -1649,9 +1977,28 @@ def main(device=None) -> None:
               f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
               f"{r['max_abs_err']:.3g} ({r['match']})", flush=True)
     shutil.rmtree(sim_dir, ignore_errors=True)
+    del sim
+    torch.cuda.empty_cache()
+
+    # ---- the reservoir schemes and the partner mask in words -----------------
+    ge_launch, ge_checks, recs["C_fixed_rate"] = ge_fixed_rate_main(card, device)
+    checks.update(ge_checks)
+    torch.cuda.empty_cache()
+    o2o_launch, o2o_checks, recs["C_one_to_one"] = si_one_to_one_main(mat, card, device)
+    checks.update(o2o_checks)
+    torch.cuda.empty_cache()
+    cw_launch, cw_checks, recs["corrugated"] = corrugated_main(mat, card, device)
+    checks.update(cw_checks)
+    for k in ("C_fixed_rate", "C_one_to_one", "corrugated"):
+        r = recs[k]
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms (calls back to back {r['event_ms']:.4f}), plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms'] and round(r['library_ms'], 4)} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']:.3g} "
+              f"({r['match']})", flush=True)
+    torch.cuda.empty_cache()
     # ---- the launch splits, after every main path and timing ------------------
     split_launches(list(recs.values()) + off_path + full_off)
-    for k in ("survivors", "lattice", "C_v1"):
+    for k in ("survivors", "lattice", "C_v1", "C_fixed_rate", "C_one_to_one"):
         checks[f"{recs[k]['name']}: one kernel launch a call"] = recs[k].get("per_call") == 1
     failed = [k for k, v in checks.items() if not v]
     if failed:
@@ -1673,6 +2020,9 @@ def main(device=None) -> None:
         recs[k]["launches"] = b_launch["raycast_large"]
     recs["D"]["launches"] = s_launch["scatter_rows"]
     recs["C_v1"]["launches"] = s_launch["compact"]
+    recs["C_fixed_rate"]["launches"] = ge_launch["compact"]
+    recs["C_one_to_one"]["launches"] = o2o_launch["compact"]
+    recs["corrugated"]["launches"] = cw_launch["megastep"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -9,8 +9,12 @@ that says `--device cpu` runs on the CPU. Configurations outside the fused
 step's envelope (e.g. examples/voronoi_star.txt: radial temperatures) run
 the v1 step; the driver prints why.
 
-The figures (--fig_plot, the init and postprocess plots, --postprocess) are
-not ported yet (ROADMAP queue 1, item 13).
+The figures are the JAX CLI's (visual.py): the material and geometry plots
+at the start, the postprocess figures at the end of every run, and
+    python -m nanokappa_torch.cli --postprocess RESULTS_FOLDER
+rebuilds them from a finished results folder's files alone and exits (no
+simulation, no card). A plot that fails (e.g. no matplotlib) is reported
+and never stops the run.
 """
 
 from __future__ import annotations
@@ -25,10 +29,14 @@ from nanokappa_torch.io.config import generate_results_folder, read_args
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
+    # offline postprocess: parsed before the full parser, so the required
+    # -pf/-hf flags are not demanded; the rest comes from the folder's
+    # arguments.txt (nanokappa_tpu/cli.py:18-30)
     if "--postprocess" in argv:
-        raise NotImplementedError(
-            "--postprocess (the figures) is not ported yet (ROADMAP queue 1, item 13)"
-        )
+        from nanokappa_torch.visual import postprocess_folder
+
+        postprocess_folder(argv[argv.index("--postprocess") + 1])
+        return
     args = generate_results_folder(read_args(argv))
 
     out_mode = args.output if isinstance(args.output, str) else args.output[0]
@@ -59,7 +67,22 @@ def main(argv=None):
         )
         print(f"Particles: {sim.n_p_target} (pool capacity {sim.params.n_cap}) on {sim.device}",
               flush=True)
+        try:
+            from nanokappa_torch.visual import plot_geometry, plot_material
+
+            plot_material(sim.material, args.results_folder)
+            plot_geometry(sim.domain, args.results_folder)
+        except Exception as e:
+            print("init plots failed:", e)
+
         sim.run(profile_dir=(str(args.profile[0]) or None))
+
+        try:
+            from nanokappa_torch.visual import postprocess
+
+            postprocess(sim)
+        except Exception as e:  # plots must never kill a finished simulation
+            print("postprocess failed:", e)
 
         dt = time.time() - t0
         print("---------- o ----------- o ------------- o ------------")

@@ -67,7 +67,7 @@
 
 struct MegaCfg {  // mirrored by _CCfg in ops/megastep.py, field for field
   int n, n_rows, tri, sv, sv8, rta_on, flip_axis, slice_axis, ecap;
-  int n_facets, n_tris, rounds, n_modes, n_tau, precast, sv_mode;
+  int n_facets, n_tris, rounds, n_modes, n_tau, precast, sv_mode, cmask_w;
   unsigned int seed;
   float dt, t_ref, hbar, kb, x_ref, lo_b, inv_len, tau_tmin, tau_tmax, c0, dc;
   const float* facets;     // (n_facets, FT_W) facet table, ints as bits
@@ -75,7 +75,8 @@ struct MegaCfg {  // mirrored by _CCfg in ops/megastep.py, field for field
   const float* diff2;      // (NU, n_modes, 2) [alias prob, alias mode bits]
   const float* omega_vel;  // (n_modes, 4)
   const float* k2;         // (n_modes,) |k|^2
-  const int* cmask;        // (n_modes,) bit r: a specular partner at row r
+  const int* cmask;        // (n_modes, cmask_w) bit r & 31 of word r >> 5: a
+                           // specular partner at row r
   const float* tau;        // (n_tau, n_modes) lifetime table
   const float* tau_T;      // (n_tau,) its temperatures
   const float* centers;    // (sv8, 4) [x, y, z, |c|^2] (centre mode only), padded
@@ -546,7 +547,8 @@ mega_lanes(const MegaCfg c, float* __restrict__ pool, const float* __restrict__ 
           const float v2 = (v[0] * v[0] + v[1] * v[1]) + v[2] * v[2];
           const float cos2 = (vdn * vdn) / max_p(v2, 1e-30f);
           float ps = expf((((-4.0f * eta) * eta) * cos2) * c.k2[mode]);
-          if (((c.cmask[mode] >> r) & 1) == 0) ps = 0.0f;
+          const uint32_t word = (uint32_t)c.cmask[(size_t)mode * c.cmask_w + (r >> 5)];
+          if (((word >> (r & 31)) & 1u) == 0u) ps = 0.0f;
           const uint32_t lane = (uint32_t)i;
           if (nk::uniform24(lane, c.seed, round, 0) >= ps) {
             // diffuse: a new mode by Walker alias over the row's creation

@@ -17,11 +17,12 @@ It runs on the card unless --device names another device. Like the JAX
 driver, it takes the fused v2 step wherever the configuration is eligible
 and the general v1 step elsewhere (sim/fused.py v2_eligible), logging why
 (nanokappa_tpu/driver.py:325-330); the v1 step has no deferred RTA, so
-nothing is finalised before a particle_data.txt write. Configurations
-outside the ported paths raise NotImplementedError naming their ROADMAP
-item: the 'fixed_rate' and 'one_to_one' reservoirs (item 5), more than 32
-rough-wall table rows with in-kernel diffuse reflection (item 10) and
-several shards (item 12).
+nothing is finalised before a particle_data.txt write. Every reservoir
+scheme runs ('fixed_rate' and 'constant' on the autosized copy lattice).
+Several shards (multi-GPU) raise NotImplementedError naming their ROADMAP
+item (12). Under --fig_plot the particle scatter figures are refreshed at
+every checkpoint (visual.py runtime_figures; matplotlib is imported there
+only, and a failed plot never stops the run).
 """
 
 from __future__ import annotations
@@ -30,13 +31,14 @@ import os
 import time
 from collections import deque
 from dataclasses import fields, replace
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 from nanokappa_torch.constants import EVPSA2_IN_WM2
 from nanokappa_torch.geometry.device import build_device_geometry, resolve_device
-from nanokappa_torch.geometry.domain import BC, build_domain
+from nanokappa_torch.geometry.domain import BC, Domain, build_domain
 from nanokappa_torch.io import writers
 from nanokappa_torch.io.config import write_arguments_file
 from nanokappa_torch.io.trace import PhaseTimer, trace
@@ -54,7 +56,7 @@ from nanokappa_torch.sim.reservoir import (
     autosize_c_max, autosize_inj_cap, build_reservoir_tables,
 )
 from nanokappa_torch.sim.state import (
-    C_ALIVE, C_DEV, C_MODE, SimParams, init_state, particle_count, round_pool_cap,
+    C_ALIVE, C_DEV, C_MODE, C_SV, SimParams, init_state, particle_count, round_pool_cap,
 )
 from nanokappa_torch.sim.step import StepOutputs, build_step
 
@@ -65,6 +67,51 @@ def parse_max_time(s: str) -> float:
     h, m, sec = (int(x) for x in hms.split(":"))
     total = int(days) * 86400 + h * 3600 + m * 60 + sec
     return float("inf") if total == 0 else float(total)
+
+
+def material_from_args(args) -> Material:
+    """Load the material exactly as the driver does (shared with the offline
+    postprocess entry, visual.py postprocess_folder). Multi-material runs
+    are rejected, as in the JAX package (nanokappa_tpu/driver.py:49): the
+    reference's multi-material path is dead code."""
+    sv_mat = [str(x) for x in getattr(args, "subvol_material", []) or []]
+    if len(set(sv_mat)) > 1 or len(args.mat_folder) > 1:
+        raise SystemExit(
+            "ERROR: multi-material simulations (--subvol_material with "
+            "distinct indices / multiple --mat_folder entries) are not "
+            "supported. Run one material per simulation."
+        )
+    rotation = None
+    if len(args.mat_rotation) >= 4:
+        rotation = (
+            [float(x) for x in args.mat_rotation[1:4]],
+            str(args.mat_rotation[4]) if len(args.mat_rotation) > 4 else "xyz",
+        )
+    return load_material(
+        args.mat_folder[0], args.hdf_file[0], args.poscar_file[0],
+        isotope_scattering=0 in list(args.isotope_scat), rotation=rotation,
+    )
+
+
+def domain_from_args(args) -> Domain:
+    """Build the domain exactly as the driver does (shared with the offline
+    postprocess entry)."""
+    rot = None
+    gr = list(args.geo_rotation)
+    if len(gr) >= 4 and any(float(x) != 0 for x in gr[:-1]):
+        rot = ([float(x) for x in gr[:-1]], str(gr[-1]))
+    return build_domain(
+        geometry=str(args.geometry[0]).replace("cuboid", "box"),
+        dimensions=[float(d) for d in args.dimensions],
+        scale=[float(s) for s in args.scale],
+        rotation=rot,
+        subvolumes=tuple(args.subvolumes),
+        bound_pos=tuple(args.bound_pos),
+        bound_cond=tuple(args.bound_cond),
+        bound_values=tuple(args.bound_values),
+        connect_pos=tuple(args.connect_pos),
+        volume_algo=str(getattr(args, "subvol_volume_algo", ["mc"])[0]),
+    )
 
 
 N_DT_TO_CONV = 10  # timesteps per convergence datapoint (Population.py:41)
@@ -110,36 +157,12 @@ class Simulation:
         # --- material -------------------------------------------------------
         with timer.phase("setup_material"):
             if material is None:
-                rotation = None
-                if len(args.mat_rotation) >= 4:
-                    rotation = (
-                        [float(x) for x in args.mat_rotation[1:4]],
-                        str(args.mat_rotation[4]) if len(args.mat_rotation) > 4 else "xyz",
-                    )
-                material = load_material(
-                    args.mat_folder[0], args.hdf_file[0], args.poscar_file[0],
-                    isotope_scattering=0 in list(args.isotope_scat), rotation=rotation,
-                )
+                material = material_from_args(args)
         self.material = material
 
         # --- geometry -------------------------------------------------------
         with timer.phase("setup_domain"):
-            rot = None
-            gr = list(args.geo_rotation)
-            if len(gr) >= 4 and any(float(x) != 0 for x in gr[:-1]):
-                rot = ([float(x) for x in gr[:-1]], str(gr[-1]))
-            self.domain = build_domain(
-                geometry=str(args.geometry[0]).replace("cuboid", "box"),
-                dimensions=[float(d) for d in args.dimensions],
-                scale=[float(s) for s in args.scale],
-                rotation=rot,
-                subvolumes=tuple(args.subvolumes),
-                bound_pos=tuple(args.bound_pos),
-                bound_cond=tuple(args.bound_cond),
-                bound_values=tuple(args.bound_values),
-                connect_pos=tuple(args.connect_pos),
-                volume_algo=str(getattr(args, "subvol_volume_algo", ["mc"])[0]),
-            )
+            self.domain = domain_from_args(args)
             self.geo = build_device_geometry(self.domain, self.device)
 
         # --- parameters -----------------------------------------------------
@@ -244,9 +267,6 @@ class Simulation:
             self.folder, dom.n_of_subvols, dom.n_of_reservoirs, dom.subvol_type,
             dom.subvol_connections,
         )
-        if len(args.fig_plot):
-            print("NOTE: figures are not ported yet (ROADMAP queue 1, item 13); "
-                  "--fig_plot is ignored", flush=True)
 
     # ------------------------------------------------------------------ run
 
@@ -456,9 +476,16 @@ class Simulation:
                     self.state, n_esc = self.contains_check(self.state, self._repair_gen)
                     self.n_escaped_total += int(n_esc)
                 self._update_residue()
-                # periodic checkpoint (reference run_timestep,
+                # periodic checkpoint + figures (reference run_timestep,
                 # classes/Population.py:1729-1735)
                 self.write_final_state()
+                if len(args.fig_plot):
+                    try:
+                        from nanokappa_torch.visual import runtime_figures
+
+                        runtime_figures(self)
+                    except Exception:
+                        pass
                 if verbose:
                     info = "Timestep {:>5d} - max residue: {:>9.3e} ({:<9s}) [".format(
                         self.current_timestep, self.max_residue, self.max_residue_qt
@@ -474,6 +501,31 @@ class Simulation:
 
     # -------------------------------------------------------------- outputs
 
+    def host_state(self) -> SimpleNamespace:
+        """The finalised particles on the host (the pending deferred RTA
+        applied on a copy, as particle_data.txt is written; one
+        device-to-host copy of the pool): `alive` (N,) bool, `mode`, `dev`,
+        `sv_col` (N,) and `pos` (N, 3) of every pool lane, and `T_sv`."""
+        s = self._finalize(self.state)
+        pool = s.pool.cpu().numpy()
+        return SimpleNamespace(
+            alive=pool[C_ALIVE] > 0.5,
+            mode=pool[C_MODE].view(np.int32),
+            dev=pool[C_DEV],
+            sv_col=pool[C_SV].view(np.int32),
+            pos=pool[0:3].T,
+            T_sv=s.T_sv.cpu().numpy(),
+        )
+
+    def occupation_of(self, state) -> np.ndarray:
+        """Occupations of a host_state()'s lanes: the deviation plus the
+        Bose-Einstein occupation at the reference temperature. Dead lanes
+        carry arbitrary mode bits: clipped before the table lookup (callers
+        mask by `alive`)."""
+        mode = np.clip(np.asarray(state.mode), 0, self.material.n_modes - 1)
+        omega = self.material.omega.reshape(-1)[mode]
+        return np.asarray(state.dev, dtype=float) + bose_einstein(self.params.t_reference, omega)
+
     def write_final_state(self):
         """particle_data.txt of the finalised state (the pending deferred RTA
         applied on a copy, so the occupations are the reference's end-of-step
@@ -482,16 +534,12 @@ class Simulation:
             self._write_final_state()
 
     def _write_final_state(self):
-        s = self._finalize(self.state)
-        pool = s.pool.cpu().numpy()  # one device-to-host copy
-        alive = pool[C_ALIVE] > 0.5
-        mat = self.material
-        mode = np.clip(pool[C_MODE].view(np.int32), 0, mat.n_modes - 1)[alive]
-        omega = mat.omega.reshape(-1)[mode]
-        occupation = pool[C_DEV][alive].astype(float) + bose_einstein(self.params.t_reference, omega)
-        q, j = mat.mode_to_qj(mode)
+        s = self.host_state()
+        alive = s.alive
+        mode = np.clip(s.mode, 0, self.material.n_modes - 1)[alive]
+        q, j = self.material.mode_to_qj(mode)
         writers.write_particle_data(
-            self.folder, np.stack([q, j], axis=1), pool[0:3, alive].T, occupation,
+            self.folder, np.stack([q, j], axis=1), s.pos[alive], self.occupation_of(s)[alive],
             self.args.hdf_file, self.args.poscar_file,
         )
         if len(self.window) == 0:

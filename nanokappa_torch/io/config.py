@@ -71,19 +71,36 @@ def initialise_parser(debug_flag: bool = True) -> argparse.ArgumentParser:
     return p
 
 
-def read_args(argv=None, debug_flag: bool = True) -> argparse.Namespace:
-    """Parse argv, replaying a parameter file when -ff/--from_file is given."""
+def read_args(argv=None, debug_flag: bool = True, tolerant: bool = False) -> argparse.Namespace:
+    """Parse argv, replaying a parameter file when -ff/--from_file is given.
+
+    `tolerant=True` ignores unknown flags instead of erroring — used by the
+    offline postprocess entry so a results folder's arguments.txt written
+    by another solver (the reference's, with flags like --rt_plot, or the
+    JAX package's) still parses."""
     argv = list(sys.argv[1:] if argv is None else argv)
     parser = initialise_parser(debug_flag)
+
+    def parse(tokens):
+        if tolerant:
+            ns, _ = parser.parse_known_args(tokens)
+            return ns
+        return parser.parse_args(tokens)
+
     if "-ff" in argv or "--from_file" in argv:
         i = argv.index("-ff") if "-ff" in argv else argv.index("--from_file")
         filename = argv[i + 1]
         with open(filename) as f:
             tokens = f.read().split()
-        args = parser.parse_args(tokens)
+        if tolerant and "--from_file" in tokens:
+            # a replayed arguments.txt may itself carry a --from_file entry
+            # pointing at a file that no longer exists; drop it
+            j = tokens.index("--from_file")
+            del tokens[j : j + 2]
+        args = parse(tokens)
         args.from_file = filename
         return args
-    return parser.parse_args(argv)
+    return parse(argv)
 
 
 def generate_results_folder(args) -> argparse.Namespace:

@@ -177,7 +177,8 @@ class _CCfg(ctypes.Structure):
         ("ecap", ctypes.c_int), ("n_facets", ctypes.c_int),
         ("n_tris", ctypes.c_int), ("rounds", ctypes.c_int),
         ("n_modes", ctypes.c_int), ("n_tau", ctypes.c_int),
-        ("precast", ctypes.c_int), ("sv_mode", ctypes.c_int), ("seed", ctypes.c_uint),
+        ("precast", ctypes.c_int), ("sv_mode", ctypes.c_int), ("cmask_w", ctypes.c_int),
+        ("seed", ctypes.c_uint),
         ("dt", ctypes.c_float), ("t_ref", ctypes.c_float),
         ("hbar", ctypes.c_float), ("kb", ctypes.c_float),
         ("x_ref", ctypes.c_float), ("lo_b", ctypes.c_float),
@@ -219,7 +220,8 @@ class MegaConfig:
     diff2: torch.Tensor  # (NU, M, 2) f32 [alias prob, alias mode bits]
     omega_vel: torch.Tensor  # (M, 4) f32
     k2: torch.Tensor  # (M,) f32 |k|^2 of each mode
-    cmask: torch.Tensor  # (M,) i32 bit r: the mode has a specular partner at row r
+    cmask: torch.Tensor  # (M, cmask_w) i32: bit r & 31 of word r >> 5 is set where
+    #   the mode has a specular partner at row r
     tau: torch.Tensor  # (nT, M) f32 lifetime table
     tau_T: torch.Tensor  # (nT,) f32
     centers: torch.Tensor  # (SV8, 4) f32 [x, y, z, |c|^2], padded (`_pad_centers`; centre mode; empty otherwise)
@@ -232,11 +234,17 @@ class MegaConfig:
     def n_rows(self) -> int:
         return LAYOUT_ROWS[self.layout]
 
+    @property
+    def cmask_w(self) -> int:
+        """32-bit words of a mode's partner mask: ceil(table rows / 32)."""
+        return self.cmask.shape[1] if self.cmask.dim() == 2 else 0
+
     def c_struct(self, n: int, rta_on: bool, seed: int) -> _CCfg:
         c = _CCfg()
         c.n, c.n_rows = n, self.n_rows
         c.tri, c.precast = int(self.box is None and self.kernel_cast), int(not self.kernel_cast)
         c.sv_mode, c.c0, c.dc = self.sv_mode, self.c0, self.dc
+        c.cmask_w = self.cmask_w
         c.sv, c.sv8 = self.sv, self.sv8
         c.rta_on, c.flip_axis = int(bool(rta_on)), self.flip_axis
         c.slice_axis, c.ecap = self.slice_axis, self.ecap
@@ -290,13 +298,15 @@ def _facet_table(geo, btab) -> np.ndarray:
 
 
 def partner_bitmask(btab) -> np.ndarray:
-    """(M,) int32: bit r set where the mode has a specular partner at
-    boundary-table row r (the JAX package's corr-existence bitmask,
-    nanokappa_tpu/sim/fused.py dkern_mode_rows)."""
+    """(M, W) int32 with W = ceil(NU / 32) words a mode: bit r & 31 of word
+    r >> 5 is set where the mode has a specular partner at boundary-table
+    row r (the JAX package's corr-existence bitmask,
+    nanokappa_tpu/sim/fused.py dkern_mode_rows, widened past 32 rows)."""
     corr = btab._host["corr"]  # (NU, M)
-    cm = np.zeros(corr.shape[1], np.uint32)
-    for r in range(corr.shape[0]):
-        cm |= (corr[r] >= 0).astype(np.uint32) << np.uint32(r)
+    NU, M = corr.shape
+    cm = np.zeros((M, max(1, -(-NU // 32))), np.uint32)
+    for r in range(NU):
+        cm[:, r >> 5] |= (corr[r] >= 0).astype(np.uint32) << np.uint32(r & 31)
     return cm.view(np.int32)
 
 
@@ -361,7 +371,7 @@ def mega_config(
         tau, tau_Tt = mat.tau.contiguous(), mat.tau_T.contiguous()
     else:
         diff2 = omega_vel = k2 = tau = tau_Tt = empty
-        cmask = torch.zeros(0, dtype=torch.int32, device=d)
+        cmask = torch.zeros((0, 0), dtype=torch.int32, device=d)
     return MegaConfig(
         layout=layout,
         sv=SV,
@@ -586,7 +596,8 @@ def drift_megastep_plain(pool, T_sv, rta_on, cfg: MegaConfig, seed: int = 0):
             v2 = (v[0] * v[0] + v[1] * v[1]) + v[2] * v[2]
             cos2 = (vdn * vdn) / torch.clamp(v2, min=1e-30)
             p_spec = torch.exp(-4.0 * eta * eta * cos2 * cfg.k2[torch.where(undecided, mode_c, 0)])
-            has = ((cfg.cmask[torch.where(undecided, mode_c, 0)] >> row) & 1) == 1
+            word = cfg.cmask[torch.where(undecided, mode_c, 0), row >> 5]
+            has = ((word >> (row & 31)) & 1) == 1
             p_spec = torch.where(has, p_spec, 0.0)
             u0 = uniform24(lane, seed, rnd, 0)
             rrf = undecided & (u0 >= p_spec)

@@ -3,8 +3,9 @@ narrow event machinery.
 
 Torch twin of nanokappa_tpu/sim/fused.py `make_step_v2` (:576) on slice
 subvolumes (nearest or linear temperatures) and grid/voronoi subvolumes of
-up to MAX_CENTERS centres (nearest temperatures), `pooled` or `constant`
-reservoirs, the velocity or the k scattering model, on three paths:
+up to MAX_CENTERS centres (nearest temperatures), every reservoir scheme
+(`pooled`, `constant`, `fixed_rate`, `one_to_one`: sim/reservoir.py), the
+velocity or the k scattering model, on three paths:
   * the specular-mirror path of eta = 0 (fully specular) rough walls that
     share one correspondence table: on the "slim" 18-row layout where the
     partner is the exact crystal mirror on one axis (the slim gate,
@@ -16,8 +17,9 @@ reservoirs, the velocity or the k scattering model, on three paths:
   * the mirror-off path, e.g. the nanowire: a box or a mesh of at most
     TRI_KERNEL_MAX triangles (kernel A casts against the triangles) with
     rough eta > 0 walls, whose diffuse reflections kernel A draws itself
-    and whose specular winners it exports flagged; the pool is the
-    "plain" 16-row layout with full cached lifetimes,
+    and whose specular winners it exports flagged, for any number of wall
+    table rows (the per-mode partner mask is ceil(rows / 32) words); the
+    pool is the "plain" 16-row layout with full cached lifetimes,
   * the kernel_cast-off path, e.g. an imported STL or a finely tessellated
     primitive: a mesh of TRI_KERNEL_MAX to LARGE_TRI_MAX triangles. Kernel
     A cannot cast there: injections are pre-cast at buffer width through
@@ -42,8 +44,10 @@ Pipeline per step:
   5. an O(SV) postlude inverts T(E).
 
 The tail position is a host integer: injection counts come from the host
-accumulators (sim/reservoir.py), so no step reads the device to know where
-to append.
+accumulators of the `pooled` and `constant` schemes, so no step of theirs
+reads the device to know where to append; `fixed_rate` reads its lattice's
+count back, `one_to_one` the previous step's (R,) n_leaving
+(sim/reservoir.py).
 """
 
 from __future__ import annotations
@@ -66,7 +70,7 @@ from nanokappa_torch.sim.boundary_tables import (
 from nanokappa_torch.ops.megastep import MAX_CENTERS, MAX_SLICES
 from nanokappa_torch.ops.raycast import raycast
 from nanokappa_torch.sim.cascade import run_event_buffer, v1_event_cap
-from nanokappa_torch.sim.reservoir import ReservoirTables, sample_injections
+from nanokappa_torch.sim.reservoir import RES_GENS, ReservoirTables, sample_injections
 from nanokappa_torch.sim.scatter import (
     lifetime_by_sv, lifetime_lookup, rta_scatter, slope_pair,
 )
@@ -86,7 +90,6 @@ def _todo(what: str, item: int):
 TRI_KERNEL_MAX = 128  # triangles kernel A casts against in-kernel
 LARGE_TRI_MAX = 65536  # meshes beyond TRI_KERNEL_MAX up to this run kernel
 #   A with kernel_cast off and kernel E (its 512-chunk bound)
-CMASK_ROWS = 32  # boundary-table rows the per-mode partner bitmask holds
 
 
 def kernel_cast_ok(geo) -> bool:
@@ -228,23 +231,14 @@ def v2_eligible(geo, params: SimParams) -> bool:
 def require_slice(geo, btab, params: SimParams, mat) -> None:
     """Raise NotImplementedError, naming the ROADMAP item that ports it, for
     a configuration neither step of the port runs: several particle shards
-    (item 12), the 'fixed_rate' and 'one_to_one' reservoirs (item 5), and
-    on the fused v2 step more than CMASK_ROWS rough-wall table rows where
-    kernel A reflects diffusely in-kernel (item 10). Every other
-    configuration runs: the v2 step where v2_eligible, the v1 step (sim/
-    step.py make_step) elsewhere."""
+    (item 12). Every other configuration runs: the v2 step where
+    v2_eligible, the v1 step (sim/step.py make_step) elsewhere."""
     if params.n_shards != 1:
         raise _todo("particle-axis sharding (multi-GPU)", 12)
     if params.temp_interp == "linear" and geo.subvol_type == "slice" and geo.n_subvols < 2:
         raise ValueError("temp_interp='linear' needs at least 2 slices")
-    if geo.n_reservoirs > 0 and params.res_gen not in ("pooled", "constant"):
-        raise _todo(f"reservoir_gen={params.res_gen!r}", 5)
-    if (
-        v2_eligible(geo, params) and btab is not None and int(btab.n_rows) > CMASK_ROWS
-        and dkern_active(geo, btab, params, mat)
-    ):
-        # the partner bitmask serves in-kernel diffuse reflection only
-        raise _todo(f"{btab.n_rows} rough-wall table rows (> {CMASK_ROWS})", 10)
+    if geo.n_reservoirs > 0 and params.res_gen not in RES_GENS:
+        raise ValueError(f"unknown reservoir_gen {params.res_gen!r}")
 
 
 def dkern_facet_tables(geo, btab) -> dict:
@@ -453,6 +447,10 @@ def make_step_v2(
     M = mat.tau.shape[1]
     EVT_CAP = event_window(geo, mat, btab, params)
     cfg = mega_config(geo, mat, btab, params, EVT_CAP, flip, layout=layout)
+    # mega_config decides in-kernel diffuse reflection from the layout; on
+    # the layout pool_layout gives, that is dkern_active's decision
+    if cfg.dkern != dkern_active(geo, btab, params, mat):
+        raise RuntimeError("kernel A's in-kernel diffuse branch disagrees with dkern_active")
     SV8 = cfg.sv8
     # rounds 2+ of the narrow machinery: the mirror path's buffer is already
     # the deep-chain tail (E/4); off it first bounces dominate, and with
@@ -488,7 +486,7 @@ def make_step_v2(
         lost_inj = 0
         if R > 0:
             rows, n_valid, new_counter, dropped, props = sample_injections(
-                state.res_counter, geo, rtab, params, state.gen
+                state.res_counter, geo, rtab, params, state.gen, state.n_leaving
             )
             if mirror:
                 mode_inj = torch.clamp(as_i32(rows[C_MODE]), 0, M - 1)

@@ -6,7 +6,7 @@ Host side precomputes per-(reservoir, mode) entry probabilities
     enter_prob[r, m] = max(v_m . (-n_r), 0) * dt / bound_thickness_r,
     bound_thickness_r = N_active_modes / (particle_density * A_r).
 
-Two of the JAX package's generation schemes (nanokappa_tpu/sim/reservoir.py
+The JAX package's four generation schemes (nanokappa_tpu/sim/reservoir.py
 sample_injections):
   * 'pooled': a scalar fractional accumulator per reservoir fixes each
     step's count, modes come from the Walker alias table of enter_prob,
@@ -16,13 +16,24 @@ sample_injections):
     accumulator crosses 1. The copies are the occupied lanes of a
     (c_max, R*M) lattice, packed to the front by kernel C (ops/compact.py)
     in lattice order; each copy's arrival time is its fraction of the step
-    (the accumulator for copy 0, a uniform draw for the others).
+    (the accumulator for copy 0, a uniform draw for the others);
+  * 'fixed_rate': the same lattice, with floor(enter_prob) copies plus one
+    more where a fresh per-(reservoir, mode) uniform `dice` falls at or
+    below the fractional part (no accumulator); copy 0 arrives at
+    dice / enter_prob;
+  * 'one_to_one' (classes/Population.py:457-489): exactly as many
+    particles as left each reservoir in the previous step (n_leaving),
+    up to inj_cap // R a reservoir, modes by the Walker alias of
+    enter_prob, arrival times uniform; the valid lanes of the
+    (R, inj_cap // R) block are packed to the front by kernel C.
 Injected particles sit uniformly on their reservoir facet: a box wall is a
 rectangle, any other facet a triangle picked by area and a folded
-barycentric draw. The accumulators are float32 NumPy on the host — the same
-float32 arithmetic as the JAX package's device arrays — so the per-step
-counts, and with them the pool's tail arithmetic, are known without a
-device sync.
+barycentric draw. The accumulators of 'pooled' and 'constant' are float32
+NumPy on the host — the same float32 arithmetic as the JAX package's device
+arrays — so their per-step counts, and with them the pool's tail
+arithmetic, are known without a device sync. 'fixed_rate' draws its dice on
+the device and reads back the lattice's count (one two-int copy a step);
+'one_to_one' reads back the previous step's n_leaving ((R,) ints a step).
 """
 
 from __future__ import annotations
@@ -40,6 +51,9 @@ from nanokappa_torch.sim.state import (
     STALE, N_COLS, C_ALIVE, C_CF, C_DEV, C_MODE, C_OMEGA, C_ONF, C_POS,
     C_REM, C_SV, C_TAU, C_TCOLL, C_VEL, SimParams, as_f32,
 )
+
+
+RES_GENS = ("pooled", "constant", "fixed_rate", "one_to_one")  # --reservoir_gen
 
 
 @dataclass(frozen=True)
@@ -187,36 +201,90 @@ def constant_counts(res_counter: np.ndarray, rtab: ReservoirTables, n_shards: in
     return counts, clipped, new_counter
 
 
-def _constant_lattice(res_counter, rtab: ReservoirTables, params: SimParams, gen, dev):
-    """The 'constant' scheme's draws: (inj_res, inj_mode, inj_dtin (cap,)
-    in lattice order, n_valid, dropped, new res_counter). Lattice lane
-    l = c * R*M + rm holds copy c of (reservoir, mode) rm."""
+def _lattice(counts_d, copy0, ep, M: int, params: SimParams, gen, dev):
+    """The copy lattice of the 'constant' and 'fixed_rate' schemes: lane
+    l = c * R*M + rm holds copy c of (reservoir, mode) rm where
+    counts_d[rm] > c, packed to the front by kernel C (ops/compact.py) in
+    lattice order. Copy 0 arrives at the fraction copy0 / enter_prob of the
+    step (the accumulator, or the dice), copy c >= 1 at (c + u) /
+    enter_prob. Returns (inj_res, inj_mode, inj_dtin), (cap,) each."""
     from nanokappa_torch.ops.compact import compact_indices
 
-    R, M = rtab.enter_prob.shape
-    RM = R * M
+    RM = ep.shape[0]
     cap, c_max, dt = params.inj_cap, params.c_max, params.dt
-    counts, clipped, new_counter = constant_counts(res_counter, rtab, params.n_shards, c_max)
-    total = int(counts.sum()) - clipped
-    n_valid = min(total, cap)
-    dropped = max(total - n_valid, 0) + clipped
-
-    ep = rtab.enter_prob.reshape(-1) / params.n_shards
-    counts_d = torch.as_tensor(counts, device=dev)
-    counter_d = torch.as_tensor(new_counter.reshape(-1), device=dev)
-    # fractional arrival times: copy 0 from the accumulator, copy c >= 1 at
-    # (c + u) / enter_prob
     u = torch.rand((c_max, RM), generator=gen, device=dev)
     c_lat = torch.arange(c_max, dtype=torch.float32, device=dev)[:, None]
     frac_lat = torch.where(ep[None] > 0, (c_lat + u) / ep[None], 0.0)
-    frac_lat[0] = torch.where(ep > 0, counter_d / ep, 0.0)
+    frac_lat[0] = torch.where(ep > 0, copy0 / ep, 0.0)
     lat_valid = counts_d[None, :] > torch.arange(c_max, device=dev)[:, None]
     order, _ = compact_indices(lat_valid.reshape(-1), cap)
     order = order.long()
     rm = torch.clamp(order % RM, max=RM - 1)
     frac = frac_lat.reshape(-1)[torch.clamp(order, max=c_max * RM - 1)]
     inj_dtin = torch.clamp(dt * (1.0 - frac), 0.0, dt)
-    return rm // M, rm % M, inj_dtin, n_valid, dropped, new_counter
+    return rm // M, rm % M, inj_dtin
+
+
+def _constant_lattice(res_counter, rtab: ReservoirTables, params: SimParams, gen, dev):
+    """The 'constant' scheme's draws: (inj_res, inj_mode, inj_dtin (cap,)
+    in lattice order, n_valid, dropped, new res_counter)."""
+    M = rtab.enter_prob.shape[1]
+    counts, clipped, new_counter = constant_counts(res_counter, rtab, params.n_shards, params.c_max)
+    total = int(counts.sum()) - clipped
+    n_valid = min(total, params.inj_cap)
+    dropped = max(total - n_valid, 0) + clipped
+    ep = rtab.enter_prob.reshape(-1) / params.n_shards
+    counter_d = torch.as_tensor(new_counter.reshape(-1), device=dev)
+    inj = _lattice(torch.as_tensor(counts, device=dev), counter_d, ep, M, params, gen, dev)
+    return (*inj, n_valid, dropped, new_counter)
+
+
+def _fixed_rate_lattice(rtab: ReservoirTables, params: SimParams, gen, dev):
+    """The 'fixed_rate' scheme's draws (nanokappa_tpu/sim/reservoir.py:202-247):
+    (inj_res, inj_mode, inj_dtin (cap,) in lattice order, n_valid, dropped).
+    floor(enter_prob) copies of each (reservoir, mode) plus one where its
+    dice <= the fractional part; counts above c_max are clipped into
+    `dropped`. The dice are drawn on the device; the lattice's count and
+    the clip come back in one copy."""
+    M = rtab.enter_prob.shape[1]
+    ep = rtab.enter_prob.reshape(-1) / params.n_shards
+    fixed = torch.floor(ep)
+    dice = torch.rand(ep.shape[0], generator=gen, device=dev)
+    counts = (fixed + (dice <= ep - fixed).float()).to(torch.int32)
+    kept = torch.clamp(counts, max=params.c_max)
+    inj = _lattice(counts, dice, ep, M, params, gen, dev)
+    total, clipped = torch.stack([kept.sum(), (counts - kept).sum()]).tolist()
+    n_valid = min(total, params.inj_cap)
+    return (*inj, n_valid, max(total - n_valid, 0) + clipped)
+
+
+def _one_to_one(n_leaving: torch.Tensor, rtab: ReservoirTables, params: SimParams, gen, dev):
+    """The 'one_to_one' scheme's draws (nanokappa_tpu/sim/reservoir.py:289-318):
+    (inj_res, inj_mode, inj_dtin (cap,), n_valid, dropped). Reservoir r
+    regenerates the n_leaving[r] particles that left it in the previous
+    step, in its block of per = inj_cap // R lanes (the rest are dropped),
+    modes by the Walker alias of enter_prob (distribution-identical to the
+    reference's roulette); kernel C packs the valid lanes of the (R, per)
+    block to the front, in block order. n_leaving is read back once."""
+    from nanokappa_torch.ops.compact import compact_indices
+
+    R, M_tab = rtab.enter_alias.shape[:2]
+    cap, dt = params.inj_cap, params.dt
+    per = cap // R
+    share = n_leaving.to(device=dev, dtype=torch.int32)  # one shard: all of it
+    share_h = np.asarray(share.tolist(), dtype=np.int64)
+    n_valid = int(np.minimum(share_h, per).sum())
+    dropped = max(int(share_h.sum()) - n_valid, 0)
+    lane = torch.arange(R * per, device=dev)
+    res_l = lane // per
+    u3 = torch.rand((R * per, 3), generator=gen, device=dev)
+    jdraw = torch.clamp((u3[:, 0] * M_tab).to(torch.int32), max=M_tab - 1)
+    pa = rtab.enter_alias[res_l, jdraw.long()]
+    modes = torch.where(u3[:, 1] < pa[:, 0], jdraw, pa[:, 1].contiguous().view(torch.int32))
+    valid = (lane % per) < share[res_l]
+    order, _ = compact_indices(valid, cap)
+    order = torch.clamp(order.long(), max=R * per - 1)
+    return res_l[order], modes[order], dt * u3[order, 2], n_valid, dropped
 
 
 def _facet_positions(geo: DeviceGeometry, inj_res, gen, cap: int, dev, u2=None):
@@ -244,18 +312,17 @@ def sample_injections(
     rtab: ReservoirTables,
     params: SimParams,
     gen: torch.Generator,
+    n_leaving: torch.Tensor | None = None,
 ):
-    """Generate this step's reservoir particles WITHOUT placing them.
+    """Generate this step's reservoir particles WITHOUT placing them;
+    'one_to_one' takes the previous step's (R,) n_leaving.
 
     Returns (rows_T (16, cap) f32 packed columns, valid lanes first;
     n_valid (host int); new res_counter; dropped (host int); props
     (cap, K) — the gathered per-(reservoir, mode) injection-table rows, so
     the caller can reuse trailing columns of an extended table)."""
-    if params.res_gen not in ("pooled", "constant"):
-        raise NotImplementedError(
-            f"reservoir_gen={params.res_gen!r} is not ported yet "
-            "(ROADMAP queue 1, item 5: fixed_rate/one_to_one)"
-        )
+    if params.res_gen not in RES_GENS:
+        raise ValueError(f"unknown reservoir_gen {params.res_gen!r}")
     R, M_tab = rtab.enter_alias.shape[:2]
     cap = params.inj_cap
     dev = geo.device
@@ -282,13 +349,21 @@ def sample_injections(
         inj_dtin = dt * u5[:, 2]
         inj_pos = _facet_positions(geo, inj_res, gen, cap, dev, u2=u5[:, 3:5])
     else:
-        # the lattice's compaction already packs the valid lanes first, and
+        # each scheme's compaction already packs the valid lanes first, and
         # every unused lane holds the sentinel's values: the JAX package's
         # re-compaction of the valid prefix is the identity here, as it
         # skips it for 'pooled'
-        inj_res, inj_mode, inj_dtin, n_valid, dropped, new_counter = _constant_lattice(
-            res_counter, rtab, params, gen, dev
-        )
+        new_counter = res_counter
+        if params.res_gen == "constant":
+            inj_res, inj_mode, inj_dtin, n_valid, dropped, new_counter = _constant_lattice(
+                res_counter, rtab, params, gen, dev
+            )
+        elif params.res_gen == "fixed_rate":
+            inj_res, inj_mode, inj_dtin, n_valid, dropped = _fixed_rate_lattice(rtab, params, gen, dev)
+        else:
+            if n_leaving is None:
+                raise ValueError("reservoir_gen='one_to_one' needs the previous step's n_leaving")
+            inj_res, inj_mode, inj_dtin, n_valid, dropped = _one_to_one(n_leaving, rtab, params, gen, dev)
         inj_pos = _facet_positions(geo, inj_res, gen, cap, dev)
 
     T_res = geo.res_temperature[inj_res]
@@ -330,7 +405,9 @@ def inject(state, geo: DeviceGeometry, rtab: ReservoirTables, params: SimParams)
     lane = torch.arange(cap, dtype=torch.int32, device=pool.device)
     if rtab.n_reservoirs == 0:
         return torch.full((cap,), N, dtype=torch.int32, device=pool.device), 0
-    rows, n_valid, new_counter, dropped, _ = sample_injections(state.res_counter, geo, rtab, params, state.gen)
+    rows, n_valid, new_counter, dropped, _ = sample_injections(
+        state.res_counter, geo, rtab, params, state.gen, state.n_leaving
+    )
     # the valid rows come first: the lanes that fit are one slice
     tail = state.tail
     n_used = max(0, min(n_valid, N - tail))

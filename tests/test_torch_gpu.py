@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import compact_cases
+from torch_parity import CORRUGATED, aim_at_rough_facets, compact_cases
 
 INT_ROWS = [9, 10, 12, 14, 15, 16]  # mode, facet, on-facet, alive, sv, partner
 FLOAT_ROWS = [0, 1, 2, 3, 4, 5, 6, 7, 8, 11, 13, 17]
@@ -194,9 +194,10 @@ def test_cuda_compact_pool_matches_plain(cuda):
     assert torch.equal(_bits(a), _bits(b))
 
 
-def _plain_pool(device, domain_kw):
+def _plain_pool(device, domain_kw, scat_model="velocity", ctx=None):
     """A mirror-off configuration (rough eta > 0 walls: the "plain" pool with
-    in-kernel diffuse reflection) at 4^3, its pool compacted, 5% STALE."""
+    in-kernel diffuse reflection) at 4^3, its pool compacted, 5% STALE;
+    `ctx`, a dict, receives the domain, geometry and boundary tables."""
     from nanokappa_torch.geometry.device import build_device_geometry
     from nanokappa_torch.geometry.domain import build_domain
     from nanokappa_torch.material import synthetic_material
@@ -212,12 +213,15 @@ def _plain_pool(device, domain_kw):
     params = SimParams(
         dt=1.0, n_cap=4096, inj_cap=512, temp_interp="nearest", res_gen="constant",
         particle_density=rho, n_active_modes=mat.n_active_modes, t_reference=300.0,
+        scat_model=scat_model,
     )
     geo = build_device_geometry(dom, device)
-    btab = build_boundary_tables(mat, dom, device=device)
+    btab = build_boundary_tables(mat, dom, scat_model, device=device)
     tabs = mat.device_tables(device)
     state = init_state(mat, dom, geo, params, n_p, btab, temp_dist="linear", seed=3)
     assert state.layout == "plain"
+    if ctx is not None:
+        ctx.update(dom=dom, geo=geo, btab=btab)
     pool, _ = compact_pool_plain(state.pool)
     alive = torch.nonzero(pool[14] > 0.5).flatten()
     pool[10, alive[::20]] = torch.tensor(-2, dtype=torch.int32, device=device).view(torch.float32)
@@ -883,3 +887,70 @@ def test_cuda_raycast_large_every_shape_matches_plain(cuda):
         assert torch.equal(_bits(tk), _bits(tp)) and torch.equal(fk.cpu(), fp.cpu()), reps
         shapes.add(rl.launch_shape(len(e)))
     assert shapes == set(rl.THREADS_PER_RAY)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eta0", [False, True], ids=["eta5", "eta0"])
+@pytest.mark.parametrize("rta_on", [False, True])
+def test_cuda_megastep_mask_words_matches_plain(cuda, rta_on, eta0):
+    """Kernel A's in-kernel diffuse branch with the partner mask in two
+    words: the corrugated wire (40 wall-table rows) under the k model,
+    whose rows 32-39 have partners for some modes, with 1,920 lanes aimed
+    at its rough facets. Kernel and twin agree bit for bit on the int rows
+    and the exported indices; with eta = 0 (p = 1 where a partner exists)
+    the flagged lanes are exactly those with a partner at the row."""
+    import dataclasses
+
+    from nanokappa_torch.ops.megastep import FT_ETA, drift_megastep, drift_megastep_plain
+
+    ctx = {}
+    pool, T_sv, cfg = _plain_pool(cuda, CORRUGATED, "k", ctx)
+    assert cfg.cmask_w == 2 and cfg.tris.shape[0] == 120
+    N, modes, rows, has = aim_at_rough_facets(pool, ctx["dom"], ctx["geo"], ctx["btab"])
+    assert has[rows >= 32].any() and (~has[rows >= 32]).any()
+    if eta0:
+        facets = cfg.facets.clone()
+        facets[:, FT_ETA] = 0.0
+        cfg = dataclasses.replace(cfg, facets=facets)
+    pk, pp = pool.clone(), pool.clone()
+    rk, ik, ck, lk, bk = drift_megastep(pk, T_sv, rta_on, cfg, seed=5)
+    rp, ip, cp, lp, bp = drift_megastep_plain(pp, T_sv, rta_on, cfg, seed=5)
+    torch.cuda.synchronize()
+    assert torch.equal(ck, cp) and int(cp[3]) > 0 and (int(cp[4]) > 0) == eta0, (ck, cp)
+    ints = INT_ROWS[:-1]
+    for r in ints:
+        assert torch.equal(_bits(pk[r]), _bits(pp[r])), r
+    _close_rows(pk, pp, FLOAT_ROWS[:-1])
+    k = int(cp[2])
+    assert torch.equal(ik, ip)
+    for r in ints:
+        assert torch.equal(_bits(rk[r, :k]), _bits(rp[r, :k])), r
+    if eta0:
+        ex = np.zeros(pool.shape[1], bool)
+        ex[ik[:k].cpu().numpy()] = True
+        assert ex[:N][has].all() and ex[:N][rows >= 32].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["fixed_rate lattice", "one_to_one blocks"])
+def test_cuda_compact_new_reservoir_widths(cuda, name):
+    """Kernel C at the two reservoir schemes' widths on the 1e6-particle
+    film: the 'fixed_rate' (c_max, R*M) = (3, 2 x 178,746) lattice into
+    inj_cap, and the 'one_to_one' (R, inj_cap // R) blocks, each a valid
+    prefix, into inj_cap: bit-exact, one launch a call."""
+    from nanokappa_torch.ops import compact
+
+    g = torch.Generator().manual_seed(3)
+    if name == "fixed_rate lattice":
+        m, cap = torch.rand(1_072_476, generator=g) < 0.0036, 5120
+    else:
+        cap = 5120
+        per = cap // 2
+        lane = torch.arange(2 * per)
+        m = (lane % per) < torch.tensor([1830, 2611])[lane // per]  # the second block clips
+    m = m.to(cuda)
+    before = compact.launches
+    idx, nv = compact.compact_indices(m, cap)
+    assert compact.launches == before + 1
+    ref, rn = _compact_ref(m, cap)
+    assert torch.equal(idx.cpu(), ref) and int(nv) == int(rn)

@@ -243,24 +243,27 @@ def _gate_geo(**kw):
     (dict(subvol_type="slice", n_subvols=5), dict(temp_interp="radial"), 11),
     (dict(n_reservoirs=8), {}, 11),
     (dict(is_box=False, tri_origin=torch.zeros((65_537, 3))), {}, 11),
-    ({}, dict(res_gen="fixed_rate"), 5),
-    ({}, dict(res_gen="one_to_one"), 5),
+    # (item 5, the 'fixed_rate' and 'one_to_one' reservoirs, is ported:
+    # admitted on the fused step, 0 below)
+    ({}, dict(res_gen="fixed_rate"), 0),
+    ({}, dict(res_gen="one_to_one"), 0),
     ({}, dict(n_shards=2), 12),
 ], ids=["voronoi257", "grid257", "voronoi_linear", "voronoi_radial", "slice513", "slice_radial",
         "reservoirs8", "triangles65537", "fixed_rate", "one_to_one", "shards2"])
 def test_require_slice_names_the_item(geo_kw, params_kw, item):
     """The configurations the port still refuses raise NotImplementedError
     naming the ROADMAP item that ports them; those of item 11 (the v1 step,
-    ported) are admitted and routed to the v1 step."""
+    ported) are admitted and routed to the v1 step, those of item 5 (the
+    reservoir schemes, ported: 0 here) admitted on the fused step."""
     from nanokappa_torch.sim.fused import require_slice, v2_eligible
     from nanokappa_torch.sim.state import SimParams
 
     params = SimParams(dt=1.0, n_cap=4096, inj_cap=512, temp_interp="nearest", res_gen="pooled")
     params = dataclasses.replace(params, **params_kw)
     geo = _gate_geo(**geo_kw)
-    if item == 11:
+    if item in (0, 11):
         require_slice(geo, None, params, None)
-        assert not v2_eligible(geo, params)
+        assert v2_eligible(geo, params) == (item == 0)
         return
     with pytest.raises(NotImplementedError, match=rf"item {item}\b"):
         require_slice(geo, None, params, None)

@@ -156,8 +156,10 @@ def test_constant_positions_cover_the_caps_by_area(wire):
 
 
 @pytest.mark.parametrize("change, item", [
-    (dict(params=dict(res_gen="fixed_rate")), 5),
-    (dict(params=dict(res_gen="one_to_one")), 5),
+    # (the ids are kept from when the port refused the 'fixed_rate' and
+    # 'one_to_one' reservoirs, item 5; both now run on the fused step: 0)
+    (dict(params=dict(res_gen="fixed_rate")), 0),
+    (dict(params=dict(res_gen="one_to_one")), 0),
     # (the ids are kept from when the port refused every linear, k-model
     # and grid configuration; it now runs linear T on slices, the k model
     # off the mirror path and up to 256 grid centres, and refuses the rest)
@@ -189,9 +191,9 @@ def test_configs_outside_the_ported_paths_raise(wire, change, item, monkeypatch)
     params = dataclasses.replace(t.params, **change.get("params", {}))
     if change.get("mirror"):
         monkeypatch.setattr(fused, "mirror_eligible", lambda *a, **k: True)
-    if item == 11:
+    if item in (0, 11):
         require_slice(geo, t.btab, params, t.tabs)
-        assert not v2_eligible(geo, params)
+        assert v2_eligible(geo, params) == (item == 0)
         return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         require_slice(geo, t.btab, params, t.tabs)

@@ -89,6 +89,19 @@ STAR = dict(
     bound_values=(305.0, 295.0, 2.0, 2.0),
     connect_pos=("relative",),
 )
+# examples/corrugated_wire.txt's domain: 2 conical sections 1000 A long
+# (radius 300 -> 200 -> 300 A, 20 sides; 120 triangles, 42 facets), T caps
+# at 305 / 295 K, rough eta = 5 A side walls: 40 wall-table rows, past one
+# 32-bit partner-mask word
+CORRUGATED = dict(
+    geometry="corrugated",
+    dimensions=(1000.0, 300.0, 200.0, 20, 2),
+    subvolumes=("slice", 5, 2),
+    bound_pos=("relative", 0.5, 0.5, -0.1, 0.5, 0.5, 1.1, 1.1, 0.5, 0.5),
+    bound_cond=("T", "T", "R", "R"),
+    bound_values=(305.0, 295.0, 5.0, 5.0),
+    connect_pos=("relative",),
+)
 # the star's 12 Lloyd centres (seed 0), rounded: its Lloyd iteration costs
 # ~100 s of CPU
 STAR_CENTERS = np.array([
@@ -182,11 +195,12 @@ def assert_same(a, b, path="obj"):
 def build_pair(
     domain_kw=FILM, mesh=(4, 4, 4), n_p=3000, n_cap=4096, inj_cap=512,
     seed=3, temp_dist="linear", subvol_temp=(), step_impl="v2",
-    res_gen="pooled",
+    res_gen="pooled", scat_model="velocity",
 ):
     """The same configuration in both packages (host arrays bit-equal by
     construction; the JAX init_state and the port's draw the same NumPy
-    numbers). The 'constant' scheme gets the autosized lattice depth."""
+    numbers). The 'constant' and 'fixed_rate' schemes get the autosized
+    lattice depth."""
     from nanokappa_tpu.geometry.device import build_device_geometry as j_geo
     from nanokappa_tpu.geometry.domain import build_domain as j_dom
     from nanokappa_tpu.material import synthetic_material as j_mat
@@ -213,12 +227,14 @@ def build_pair(
         dt=1.0, n_cap=n_cap, inj_cap=inj_cap, temp_interp="nearest",
         res_gen=res_gen, particle_density=rho,
         n_active_modes=t.mat.n_active_modes, t_reference=300.0,
-        c_max=autosize_c_max(t.rtab) if res_gen == "constant" else 3,
+        c_max=autosize_c_max(t.rtab) if res_gen in ("constant", "fixed_rate") else 3,
+        scat_model=scat_model,
     )
     j.params = JParams(step_impl=step_impl, **common)
     t.params = SimParams(**common)
     j.geo, t.geo = j_geo(j.dom), build_device_geometry(t.dom, device="cpu")
-    j.btab, t.btab = j_bt(j.mat, j.dom), build_boundary_tables(t.mat, t.dom, device="cpu")
+    j.btab = j_bt(j.mat, j.dom, scat_model)
+    t.btab = build_boundary_tables(t.mat, t.dom, scat_model, device="cpu")
     j.tabs, t.tabs = j.mat.device_tables(), t.mat.device_tables("cpu")
     init = dict(temp_dist=temp_dist, subvol_temp=subvol_temp, seed=seed)
     j.state = j_init(j.mat, j.dom, j.geo, j.params, n_p, btab=j.btab, **init)
@@ -336,3 +352,130 @@ def compact_cases() -> dict:
         "all False": (np.zeros(40_000, bool), 512),
         "count > cap": (rng.random(300_000) < 0.2, 9_000),
     }
+
+
+def film_params_file(folder, mat_folder: str, hdf: str, steps: int = 200, n_p: int = 3000) -> str:
+    """A small film parameter file for both CLIs and drivers: the
+    BASELINE film's walls and reservoirs on a 2000 x 1000 x 1000 A box in 5
+    slices, 'pooled' reservoirs, nearest temperatures, a convergence
+    window of the last 10 datapoints (100 steps)."""
+    import os
+
+    text = f"""--mat_folder {mat_folder}
+--hdf_file {hdf}
+--poscar_file POSCAR
+--geometry box
+--dimensions 2e3 1e3 1e3
+--subvolumes slice 5 0
+--bound_pos relative -0.1 0.5 0.5 1.1 0.5 0.5 0.5 0.5 -0.1 0.5 0.5 1.1
+--bound_cond T T R R P
+--connect_pos relative 0.5 -0.1 0.5 0.5 1.1 0.5
+--bound_values 302 298 0 0
+--temp_dist linear
+--temp_interp nearest
+--reservoir_gen pooled
+--particles total {n_p}
+--timestep 1
+--iterations {steps}
+--n_mean 10
+--conv_crit 0 10
+--output screen
+"""
+    path = os.path.join(str(folder), "film.txt")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def run_driver(pkg: str, params_file: str, folder: str, seed: int) -> dict:
+    """One driver run ('jax': nanokappa_tpu.driver.Simulation; 'torch':
+    nanokappa_torch.driver.Simulation on the CPU) of a parameter file.
+    Returns the convergence window's means and standard errors (10
+    datapoints): T (SV,), kappa (total), eb (R,) the reservoirs' energy
+    balance, and the bulk RTA kappa of the run's material."""
+    import importlib
+
+    cfg = importlib.import_module(f"nanokappa_{'tpu' if pkg == 'jax' else 'torch'}.io.config")
+    drv = importlib.import_module(f"nanokappa_{'tpu' if pkg == 'jax' else 'torch'}.driver")
+    argv = ["-ff", params_file]
+    args = cfg.read_args(argv)
+    args.seed = [seed]
+    if pkg == "torch":
+        args.device = ["cpu"]
+    args.results_folder = folder
+    sim = drv.Simulation(args)
+    sim.run(verbose=False)
+    W = list(sim.window)
+    n = len(W)
+
+    def stat(key):
+        a = np.array([np.asarray(w[key], dtype=float) for w in W])
+        return a.mean(0), a.std(0, ddof=1) / np.sqrt(n)
+
+    out = {k: stat(src) for k, src in (("T", "T"), ("kappa", "kappa_total"), ("eb", "eb"))}
+    out["bulk"] = float(sim.material.bulk_kappa_rta(300.0)[0])
+    out["lost"] = int(W[-1]["lost"])
+    return out
+
+
+def assert_drivers_agree(runs_j: list, runs_t: list, T_hot=302.0, T_cold=298.0):
+    """The film through both drivers within Monte Carlo noise: each run's
+    profile between the reservoirs and falling, kappa below bulk and above
+    a quarter of it (tests/test_sim_box.py:89), nothing lost; then each
+    package's mean over its runs of T_sv, kappa and the reservoir energy
+    balance agree within 5 standard errors (the windows' own errors and
+    the runs' spread, combined)."""
+    for r in runs_j + runs_t:
+        T = r["T"][0]
+        assert np.all((T > T_cold) & (T < T_hot)) and T[0] > T[-1], T
+        assert 0.25 * r["bulk"] < r["kappa"][0] < r["bulk"], (r["kappa"], r["bulk"])
+        assert r["lost"] == 0
+
+    def pooled(runs, key):
+        m = np.array([r[key][0] for r in runs])
+        se = np.array([r[key][1] for r in runs])
+        mean = m.mean(0)
+        err2 = (se ** 2).sum(0) / len(runs) ** 2
+        if len(runs) > 1:
+            err2 = np.maximum(err2, m.var(0, ddof=1) / len(runs))
+        return mean, err2
+
+    for key in ("T", "kappa", "eb"):
+        mj, ej = pooled(runs_j, key)
+        mt, et = pooled(runs_t, key)
+        assert np.all(np.abs(mj - mt) <= 5.0 * np.sqrt(ej + et)), (key, mj, mt, np.sqrt(ej + et))
+
+
+def aim_at_rough_facets(pool, dom, geo, btab, per_facet: int = 48, seed: int = 1):
+    """Overwrite the first lanes of a plain pool with fresh lanes 2 A
+    inside each rough facet, flying straight at it (20 A/ps along its
+    outward normal), `per_facet` a facet, with random modes. Returns
+    (N lanes, their modes, their facets' table rows, has: the mode has a
+    specular partner at that row)."""
+    from nanokappa_torch.geometry.domain import BC
+    from nanokappa_torch.sim.fused import dkern_facet_tables
+    from nanokappa_torch.sim.state import (
+        C_ALIVE, C_CF, C_MODE, C_ONF, C_REM, C_TCOLL, STALE, as_f32,
+    )
+
+    bc = np_(geo.facet_bc)
+    rough = np.nonzero(bc == int(BC.ROUGH))[0]
+    row_of = dkern_facet_tables(geo, btab)["facet_row"]
+    corr = btab._host["corr"]
+    lanes_f = np.repeat(rough, per_facet)
+    N = len(lanes_f)
+    rng = np.random.default_rng(seed)
+    modes = rng.integers(0, corr.shape[1], N).astype(np.int32)
+    normals = dom.mesh.facet_normals[lanes_f]
+    dev = pool.device
+    pool[0:3, :N] = torch.as_tensor((dom.mesh.facet_centroids[lanes_f] - 2.0 * normals).T,
+                                    dtype=torch.float32, device=dev)
+    pool[3:6, :N] = torch.as_tensor((20.0 * normals).T, dtype=torch.float32, device=dev)
+    pool[C_MODE, :N] = as_f32(torch.as_tensor(modes, device=dev))
+    pool[C_CF, :N] = as_f32(torch.full((N,), STALE, dtype=torch.int32, device=dev))
+    pool[C_ONF, :N] = as_f32(torch.full((N,), -1, dtype=torch.int32, device=dev))
+    pool[C_TCOLL, :N] = float("inf")
+    pool[C_REM, :N] = 1.0
+    pool[C_ALIVE, :N] = 1.0
+    rows = row_of[lanes_f]
+    return N, modes, rows, corr[rows, modes] >= 0
