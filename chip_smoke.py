@@ -2,7 +2,8 @@
 """On-card smoke test of the PyTorch/CUDA port (`nanokappa_torch`).
 
     python3 chip_smoke.py     # film, nanowire, k films, plate, large mesh, star, reservoir
-                              # schemes, corrugated wire: 1e6 particles, 31^3 table
+                              # schemes, corrugated wire: 1e6 particles, 31^3 table;
+                              # the sharded film: 1e7 particles in two ranks
 
 Needs one CUDA card. In order it:
   1. prints the card's name and power limit (nvidia-smi),
@@ -94,7 +95,21 @@ Needs one CUDA card. In order it:
      examples/corrugated_wire.txt (40 wall-table rows, kernel A's partner
      mask in two words), then kernel A on its pool against its twin and the
      rough hits on rows >= 32 split into specular and diffuse,
- 12. splits each kernel A, C and D check's call by kernel name
+ 12. the sharded film (nanokappa_torch/parallel): (a) an NCCL world of
+     one rank on the card, 10 v2 steps of the bench film through
+     build_sharded_step bit for bit against build_step from one state and
+     seed; (b) two gloo ranks on cuda:0 (NCCL refuses two ranks on one
+     GPU), the film at 10^7 particles through the driver entry,
+     `Simulation(read_args(argv), material=mat, comm=comm).run()`, for 300
+     steps, with each rank's launch counters zeroed just before its
+     Simulation is built: nothing lost, the population within 5%, T_sv in
+     (298, 302) falling hot to cold and within 0.5 K of the 10^6 film of
+     step 5 at step 300, T_sv bit-identical on both ranks, A, B and C
+     launched on each, the ranks' first in-kernel seeds different; per rank
+     its set-up time, ms/step and the host time of its all-reduce; (c) with
+     two cards or more, (b) over NCCL with one rank a card (else one line
+     says it was not run),
+ 13. splits each kernel A, C and D check's call by kernel name
      (torch.profiler) and counts its kernel launches a call (kernel C's
      must be 1 at every width), last: a profiler session can leave hooks
      that add host time to every later launch, and the main paths are
@@ -107,6 +122,7 @@ one JSON line with the kernels' numbers, and
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -645,9 +661,9 @@ def main_path(name, mat, dom, geo, btab, rtab, params, n_p, tabs, card):
     """Drive one configuration through init_state -> build_step -> run with
     the launch counters zeroed just before and read just after: 2 warm-up
     and 3 timed runs of 10 x 10 steps. Returns (out, n0, launches, events,
-    state, T_100) with events = [kernel A's in-kernel diffuse re-emissions, its
+    state, T_at) with events = [kernel A's in-kernel diffuse re-emissions, its
     flagged specular exports, the narrow machinery's k-model swaps] over
-    the 500 steps, and T_100 the T_sv after the first 100."""
+    the 500 steps, and T_at the T_sv after the first 100 and 300 steps."""
     import torch
 
     from nanokappa_torch.ops import compact, compact_pool, megastep
@@ -660,16 +676,19 @@ def main_path(name, mat, dom, geo, btab, rtab, params, n_p, tabs, card):
     mods = (megastep, compact_pool, compact)
     for m in mods:
         m.launches = 0
+    T_at = {}
     for k in range(2):  # warm up: reach the steady boundary-event mix
         state, out = run(state)
         torch.cuda.synchronize()
         if k == 0:
-            T_100 = out.T_sv[-1].cpu().numpy()
+            T_at[100] = out.T_sv[-1].cpu().numpy()
     n_runs = 3  # 300 timesteps
     t0 = time.perf_counter()
-    for _ in range(n_runs):
+    for k in range(n_runs):
         state, out = run(state)
         torch.cuda.synchronize()
+        if k == 0:
+            T_at[300] = out.T_sv[-1].cpu().numpy()
     elapsed = time.perf_counter() - t0
     launches = {m.__name__.rsplit(".", 1)[1]: m.launches for m in mods}
     events = state.kernel_events.tolist()
@@ -682,7 +701,7 @@ def main_path(name, mat, dom, geo, btab, rtab, params, n_p, tabs, card):
           f"k-model swaps {events[2]}", flush=True)
     print(f"{name}: {ups:.4g} updates/s ({elapsed / (n_runs * 100) * 1e3:.3f} ms/step) on {card}",
           flush=True)
-    return out, n0, launches, events, state, T_100
+    return out, n0, launches, events, state, T_at
 
 
 def perforated_plate(L=3e3, W=3e3, H=1e3, a=600.0):
@@ -1698,6 +1717,178 @@ def corrugated_main(mat, card, device):
     return launches, checks, rec
 
 
+# the sharded film (ROADMAP 1.1): the bench film at 10^7 particles in two
+# ranks; on one card both ranks share cuda:0 over gloo (NCCL refuses two
+# ranks on one GPU), so its ms/step is a record of time-slicing, not a speed
+SHARD_PARTICLES = 1e7
+SHARD_STEPS = 300
+S1_STEPS = 10  # the NCCL world of one against the unsharded step
+
+
+def bits_equal(a, b) -> bool:
+    """Bit-equal tensors of one dtype and shape."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def sharded_film_rank(comm, out_dir, mat, argv):
+    """One rank of the sharded film through the driver entry,
+    `Simulation(read_args(argv), material=mat, comm=comm).run()`, with
+    kernel A's, B's and C's launch counters zeroed just before the
+    Simulation is built and read after its run. Writes its numbers to
+    `<out_dir>/rank<r>.json`: set-up time, ms/step over the device_step time
+    of the last 2 blocks, the host time of its all-reduces, the last T_sv,
+    whether rank 0's T_sv (broadcast) equals its own bit for bit, its first
+    in-kernel step seed."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from nanokappa_torch.driver import Simulation
+    from nanokappa_torch.io.config import read_args
+    from nanokappa_torch.ops import compact, compact_pool, megastep
+    from nanokappa_torch.sim.fused import step_seed
+
+    mods = (megastep, compact_pool, compact)
+    for m in mods:
+        m.launches = 0
+    t0 = time.perf_counter()
+    sim = Simulation(read_args(argv), material=mat, comm=comm)
+    t_setup = time.perf_counter() - t0
+    seed0 = step_seed(sim.state)
+    dist.barrier()  # the ranks start the run together: the all-reduce times exclude set-up skew
+    calls0, secs0 = comm.calls, comm.seconds
+    sim.run(verbose=False)
+    if sim.device.type == "cuda":
+        torch.cuda.synchronize(sim.device)
+    launches = {m.__name__.rsplit(".", 1)[1]: m.launches for m in mods}
+    T = sim.state.T_sv.clone()
+    T0 = T.clone()
+    dist.broadcast(T0, src=0)
+    row = sim.window[-1]
+    steps_t = sim.timer.calls["device_step"][-2:]
+    rec = dict(
+        rank=comm.rank, setup_s=t_setup, ms=sum(steps_t) / 200 * 1e3,
+        allreduce_ms=(comm.seconds - secs0) / max(comm.calls - calls0, 1) * 1e3,
+        allreduce_calls=comm.calls - calls0, T=np.asarray(row["T"]).tolist(),
+        same_T=bits_equal(T, T0), N_p=int(row["N_p"]), n0=sim.n_p_target,
+        lost=np.asarray(row["lost_split"]).tolist(), frozen=int(row["frozen"]),
+        launches=launches, seed0=int(seed0), steps=sim.current_timestep,
+        pool=int(sim.state.pool.shape[1]), n_cap=sim.params.n_cap,
+        pool_gb=sim.state.pool.numel() * 4 / 1e9,
+    )
+    with open(os.path.join(out_dir, f"rank{comm.rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def sharded_ranks(tag, backend, devices, mat, card, T_ref, n_ref):
+    """The film at SHARD_PARTICLES in len(devices) ranks through the
+    driver (sharded_film_rank), with its gates."""
+    import tempfile
+
+    import numpy as np
+
+    from nanokappa_torch.parallel.launch import launch
+
+    td = tempfile.mkdtemp(prefix="chip_smoke_shards_")
+    argv = cli_argv(FILM, td, "cuda", SHARD_STEPS, "pooled",
+                    ("--particles", "total", f"{SHARD_PARTICLES:.0f}", "--n_shards", str(len(devices))))
+    t0 = time.perf_counter()
+    launch(sharded_film_rank, len(devices), td, backend, devices, td, mat, argv)
+    wall = time.perf_counter() - t0
+    recs = []
+    for r in range(len(devices)):
+        with open(os.path.join(td, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    for r in recs:
+        print(f"{tag}: rank {r['rank']} on {devices[r['rank']]}: set-up {r['setup_s']:.1f} s, "
+              f"{r['ms']:.3f} ms/step (device_step of the last 2 blocks), all-reduce "
+              f"{r['allreduce_ms']:.4f} ms of host time a call x {r['allreduce_calls']}, pool "
+              f"{r['pool']} lanes ({r['pool_gb']:.3f} GB), launches {r['launches']}, first step "
+              f"seed {r['seed0']} on {card}", flush=True)
+    r0 = recs[0]
+    T = np.asarray(r0["T"])
+    dT = float(np.abs(T - T_ref).max())
+    print(f"{tag}: {r0['n0']} particles ({n_ref:.0f} in the one-shard film), pool {r0['n_cap']}, "
+          f"T_sv {[round(t, 3) for t in r0['T']]}, N_p {r0['N_p']}, lost {r0['lost']}, frozen "
+          f"{r0['frozen']}, max |dT_sv| {dT:.4f} K against the one-shard film at step "
+          f"{SHARD_STEPS}; launch wall {wall:.1f} s on {card}", flush=True)
+    checks = {
+        f"{tag}: {SHARD_STEPS} steps on every rank": all(r["steps"] == SHARD_STEPS for r in recs),
+        f"{tag}: lost == 0": sum(r0["lost"]) == 0,
+        f"{tag}: population within 5%": abs(r0["N_p"] - r0["n0"]) <= 0.05 * r0["n0"],
+        f"{tag}: T_sv in (298, 302)": bool(((T > 298.0) & (T < 302.0)).all()),
+        f"{tag}: T_sv falling hot to cold": bool((np.diff(T) < 0).all()),
+        f"{tag}: within 0.5 K of the one-shard film": dT <= 0.5,
+        f"{tag}: T_sv bit-identical on every rank": all(r["same_T"] for r in recs),
+        f"{tag}: A, B, C launched on every rank": all(
+            all(v > 0 for v in r["launches"].values()) for r in recs),
+        f"{tag}: the ranks' first step seeds differ": len({r["seed0"] for r in recs}) == len(recs),
+    }
+    shutil.rmtree(td, ignore_errors=True)
+    return checks
+
+
+def sharded_main(mat, card, device, f_ctx, T_ref):
+    """The sharded film: (a) an NCCL world of one rank on the card, S1_STEPS
+    v2 steps of the bench film through build_sharded_step bit for bit
+    against build_step from one state and seed; (b) two gloo ranks on
+    cuda:0, the film at SHARD_PARTICLES through the driver; (c) with two
+    cards or more, the same with NCCL and one rank a card."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from nanokappa_torch.parallel import build_sharded_step, make_particle_group, shard_state
+    from nanokappa_torch.sim.state import init_state
+    from nanokappa_torch.sim.step import StepOutputs, build_step
+
+    f_dom, f_geo, f_btab, f_rtab, f_params, f_np, tabs = f_ctx
+    td = tempfile.mkdtemp(prefix="chip_smoke_nccl1_")
+    dist.init_process_group("nccl", init_method=f"file://{td}/rdv", world_size=1, rank=0)
+    try:
+        comm = make_particle_group(1, device)
+        comm.allreduce_sum_(torch.zeros(1, device=device))  # NCCL's first call sets it up
+        comm.calls, comm.seconds = 0, 0.0
+        kw = dict(temp_dist="linear", seed=SEED)
+        ref = init_state(mat, f_dom, f_geo, f_params, f_np, f_btab, **kw)
+        host = init_state(mat, f_dom, f_geo, f_params, f_np, f_btab, host_only=True, **kw)
+        mine = shard_state(host, comm, f_geo, f_params.dt)
+        del host
+        ref, o0 = build_step(f_geo, tabs, f_btab, f_rtab, f_params, n_inner=S1_STEPS)(ref)
+        mine, o1 = build_sharded_step(f_geo, tabs, f_btab, f_rtab, f_params, comm, n_inner=S1_STEPS)(mine)
+        torch.cuda.synchronize()
+        same = all(bits_equal(getattr(o0, f), getattr(o1, f)) for f in StepOutputs.__dataclass_fields__)
+        same_pool = bits_equal(ref.pool, mine.pool)
+        print(f"sharded film (a): an NCCL world of one on {device}, {S1_STEPS} v2 steps of the "
+              f"{f_np}-particle film through build_sharded_step: outputs bit-equal {same}, pool "
+              f"bit-equal {same_pool}, {comm.calls} all-reduces, {comm.seconds / comm.calls * 1e3:.4f} "
+              f"ms of host time a call on {card}", flush=True)
+        checks = {
+            "sharded film (a): one NCCL rank bit-equal to the unsharded step": same and same_pool,
+            "sharded film (a): one all-reduce a step": comm.calls == S1_STEPS,
+        }
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(td, ignore_errors=True)
+    del ref, mine
+    torch.cuda.empty_cache()
+
+    checks.update(sharded_ranks("sharded film (b)", "gloo", ["cuda:0", "cuda:0"], mat, card, T_ref, f_np))
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        checks.update(sharded_ranks("sharded film (c)", "nccl", ["cuda:0", "cuda:1"], mat, card,
+                                    T_ref, f_np))
+    else:
+        print(f"sharded film (c): not run: this machine has {n_cards} card (NCCL takes one rank a "
+              f"card)", flush=True)
+    return checks
+
+
 def main(device=None) -> None:
     import numpy as np
     import torch
@@ -1813,7 +2004,7 @@ def main(device=None) -> None:
 
     # ---- the main paths ---------------------------------------------------------
     checks = {}
-    out, n0, f_launch, _, _, f_T100 = main_path("film", mat, f_dom, f_geo, f_btab, f_rtab, f_params, f_np, tabs, card)
+    out, n0, f_launch, _, _, f_T = main_path("film", mat, f_dom, f_geo, f_btab, f_rtab, f_params, f_np, tabs, card)
     T = out.T_sv[-1].cpu().numpy()
     n_alive, lost = int(out.N_p[-1]), out.lost_split[-1].tolist()
     checks.update({
@@ -1824,7 +2015,7 @@ def main(device=None) -> None:
         "film: A, B, C launched": all(v > 0 for v in f_launch.values()),
     })
     # ---- the same film on the v1 step: the card's cross-check of the steps ---
-    out, n0, v1_d, v1_dT, v1_layout = v1_film(mat, f_dom, f_geo, f_btab, f_rtab, f_params, f_np, tabs, f_T100)
+    out, n0, v1_d, v1_dT, v1_layout = v1_film(mat, f_dom, f_geo, f_btab, f_rtab, f_params, f_np, tabs, f_T[100])
     T = out.T_sv[-1].cpu().numpy()
     checks.update({
         "film v1: the plain pool (the v1 step)": v1_layout == "plain",
@@ -1995,6 +2186,10 @@ def main(device=None) -> None:
               f"{r['plain_ms']:.4f} ms, library {r['library_ms'] and round(r['library_ms'], 4)} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']:.3g} "
               f"({r['match']})", flush=True)
+    torch.cuda.empty_cache()
+    # ---- the sharded film: one NCCL rank, two ranks on one card -------------
+    checks.update(sharded_main(mat, card, device, (f_dom, f_geo, f_btab, f_rtab, f_params, f_np, tabs),
+                               f_T[300]))
     torch.cuda.empty_cache()
     # ---- the launch splits, after every main path and timing ------------------
     split_launches(list(recs.values()) + off_path + full_off)

@@ -15,12 +15,18 @@ at the start, the postprocess figures at the end of every run, and
 rebuilds them from a finished results folder's files alone and exits (no
 simulation, no card). A plot that fails (e.g. no matplotlib) is reported
 and never stops the run.
+
+`--n_shards S` splits the particles over S ranks (parallel/launch.py): on
+cards one rank a card over NCCL (S above the visible cards is refused; 0,
+the default, takes every visible card), with `--device cpu` S processes
+over gloo (0 means one). Rank 0 writes the output and every result file.
 """
 
 from __future__ import annotations
 
 import os
 import sys
+import tempfile
 import time
 from datetime import datetime
 
@@ -38,9 +44,28 @@ def main(argv=None):
         postprocess_folder(argv[argv.index("--postprocess") + 1])
         return
     args = generate_results_folder(read_args(argv))
+    from nanokappa_torch.parallel.launch import launch, rank_devices, shard_count
 
+    n = shard_count(int(args.n_shards[0]), str(args.device[0]))
+    if n > 1:
+        backend, devices = rank_devices(n, str(args.device[0]))
+        with tempfile.TemporaryDirectory() as rdv:
+            launch(run_rank, n, rdv, backend, devices, args)
+        return
+    run(args)
+
+
+def run_rank(comm, args):
+    """One rank of a sharded CLI run (parallel/launch.py launch)."""
+    if comm.rank != 0:
+        sys.stdout = open(os.devnull, "w")
+    run(args, comm)
+
+
+def run(args, comm=None):
+    """The CLI's run of parsed arguments: one process, or rank comm.rank."""
     out_mode = args.output if isinstance(args.output, str) else args.output[0]
-    redirect = out_mode == "file"
+    redirect = out_mode == "file" and (comm is None or comm.rank == 0)
     if redirect:
         sys.stdout = open(os.path.join(args.results_folder, "output.txt"), "w", buffering=1)
 
@@ -50,12 +75,14 @@ def main(argv=None):
     print("Simulation started at", datetime.now().strftime("%Y-%m-%d %H:%M:%S"))
     print("Arguments file:", getattr(args, "from_file", "(command line)"))
     print("Results folder:", args.results_folder)
+    if comm is not None:
+        print(f"Particle shards: {comm.size} ranks")
     print("---------- o ----------- o ------------- o ------------", flush=True)
 
     from nanokappa_torch.driver import Simulation
 
     try:
-        sim = Simulation(args)
+        sim = Simulation(args, comm=comm)
         print(
             f"Material: {sim.material.name} — {sim.material.n_qpoints} q-points, "
             f"{sim.material.n_branches} branches, {sim.material.n_active_modes} active modes"
@@ -67,22 +94,24 @@ def main(argv=None):
         )
         print(f"Particles: {sim.n_p_target} (pool capacity {sim.params.n_cap}) on {sim.device}",
               flush=True)
-        try:
-            from nanokappa_torch.visual import plot_geometry, plot_material
+        if sim.writes:
+            try:
+                from nanokappa_torch.visual import plot_geometry, plot_material
 
-            plot_material(sim.material, args.results_folder)
-            plot_geometry(sim.domain, args.results_folder)
-        except Exception as e:
-            print("init plots failed:", e)
+                plot_material(sim.material, args.results_folder)
+                plot_geometry(sim.domain, args.results_folder)
+            except Exception as e:
+                print("init plots failed:", e)
 
         sim.run(profile_dir=(str(args.profile[0]) or None))
 
-        try:
-            from nanokappa_torch.visual import postprocess
+        if sim.writes:
+            try:
+                from nanokappa_torch.visual import postprocess
 
-            postprocess(sim)
-        except Exception as e:  # plots must never kill a finished simulation
-            print("postprocess failed:", e)
+                postprocess(sim)
+            except Exception as e:  # plots must never kill a finished simulation
+                print("postprocess failed:", e)
 
         dt = time.time() - t0
         print("---------- o ----------- o ------------- o ------------")

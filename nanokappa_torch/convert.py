@@ -19,6 +19,11 @@ imports neither jax nor the JAX package.
     (ascending, its depth in free_count[0]); `v1=True` converts that one:
     to the port, the tail is past the last alive lane; back to JAX, the
     free list holds every dead lane.
+  * `shards_from_jax`: the port's per-rank states of a JAX state built with
+    n_shards = S (global arrays, free_count (S,), res_counter (S, R, M)),
+    as parallel/sharding.py shard_state splits the port's: rank s keeps
+    lane segment s, free_count[s] and its segment of the free list (the
+    JAX init's local free lists), res_counter[s], the replicated arrays.
   * `tables_from_jax`: MaterialTables, DeviceGeometry (the triangle tables
     and the grid/voronoi centres included; the centres' |c|^2 are derived
     from them), BoundaryTables (diff2 included) and ReservoirTables, field
@@ -76,6 +81,30 @@ def state_from_jax(d: dict, layout: str, device=None, seed: int = 0, v1: bool = 
         gen=make_generator(seed, device),
         step=int(np.asarray(d["step"])),
     )
+
+
+def shards_from_jax(d: dict, layout: str, device=None, seed: int = 0, v1: bool = False) -> list[SimState]:
+    """The port's S per-rank SimStates of a JAX SimState built with
+    n_shards = S (S = len(d["free_count"])), each as state_from_jax reads
+    it: with `v1` (a fresh JAX init's local free lists) the tail past the
+    segment's last alive lane, else free_count[s]. Rank s draws from
+    parallel/sharding.py shard_seed(seed, s)."""
+    from nanokappa_torch.parallel.sharding import shard_seed
+
+    S = len(np.asarray(d["free_count"]))
+    N = np.asarray(d["packed"]).shape[0]
+    n = N // S
+    out = []
+    for s in range(S):
+        seg = dict(d)
+        for k, v in d.items():
+            v = np.asarray(v)
+            if v.ndim >= 1 and v.shape[0] == N:
+                seg[k] = v[s * n:(s + 1) * n]
+        seg["free_count"] = np.asarray(d["free_count"])[s:s + 1]
+        seg["res_counter"] = np.asarray(d["res_counter"])[s:s + 1]
+        out.append(state_from_jax(seg, layout, device, shard_seed(seed, s), v1))
+    return out
 
 
 def _last_alive(packed: np.ndarray) -> int:

@@ -3,9 +3,10 @@
 The JAX package's nanokappa_tpu/driver.py (`Simulation` :102), on the port:
 the same setup (material, domain, parameters, boundary and reservoir
 tables, initial state), the same result files, the same batched loop —
-`build_step` at n_inner = 10 steps per convergence datapoint and
-n_outer = 10 datapoints per host read, with a 1-datapoint runner for the
-tail — and the same convergence test: rolling means over the last n_mean
+the block runner (parallel/sharding.py build_sharded_step: sim/step.py
+build_step on one shard) at n_inner = 10 steps per convergence datapoint
+and n_outer = 10 datapoints per host read, with a 1-datapoint runner for
+the tail — and the same convergence test: rolling means over the last n_mean
 datapoints, whose largest relative change must stay below conv_crit for
 conv_count_min consecutive checks (classes/Visualisation.py:122-212,
 classes/Population.py:1771-1839). Every 100 steps: the frozen-storm regrow
@@ -19,10 +20,15 @@ and the general v1 step elsewhere (sim/fused.py v2_eligible), logging why
 (nanokappa_tpu/driver.py:325-330); the v1 step has no deferred RTA, so
 nothing is finalised before a particle_data.txt write. Every reservoir
 scheme runs ('fixed_rate' and 'constant' on the autosized copy lattice).
-Several shards (multi-GPU) raise NotImplementedError naming their ROADMAP
-item (12). Under --fig_plot the particle scatter figures are refreshed at
-every checkpoint (visual.py runtime_figures; matplotlib is imported there
-only, and a failed plot never stops the run).
+With a ShardComm (parallel/sharding.py) the Simulation is one rank of a
+sharded run: it builds the global initial state from the run's seed and
+keeps its segment, its step sums reduce over the ranks once a step, and
+rank 0 writes every result file, the particles of every rank gathered to
+it. `python -m nanokappa_torch.cli --n_shards S` starts the S ranks
+(parallel/launch.py; 0 = every visible card, one on the CPU); a Simulation
+built without a comm is one shard. Under --fig_plot the particle scatter
+figures are refreshed at every checkpoint (visual.py runtime_figures;
+matplotlib is imported there only, and a failed plot never stops the run).
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from nanokappa_torch.io.config import write_arguments_file
 from nanokappa_torch.io.trace import PhaseTimer, trace
 from nanokappa_torch.material import load_material
 from nanokappa_torch.material.tables import Material, bose_einstein
+from nanokappa_torch.parallel.sharding import build_sharded_step, shard_seed, shard_state
 from nanokappa_torch.sim.boundary_tables import (
     build_boundary_tables, write_specular_correspondences,
 )
@@ -58,7 +65,7 @@ from nanokappa_torch.sim.reservoir import (
 from nanokappa_torch.sim.state import (
     C_ALIVE, C_DEV, C_MODE, C_SV, SimParams, init_state, particle_count, round_pool_cap,
 )
-from nanokappa_torch.sim.step import StepOutputs, build_step
+from nanokappa_torch.sim.step import StepOutputs
 
 
 def parse_max_time(s: str) -> float:
@@ -136,8 +143,10 @@ def host_outputs(out: StepOutputs) -> StepOutputs:
 class Simulation:
     """Everything assembled from parsed args; run() is the main loop."""
 
-    def __init__(self, args, material: Material | None = None):
+    def __init__(self, args, material: Material | None = None, comm=None):
         self.args = args
+        self.comm = comm
+        self.writes = comm is None or comm.rank == 0  # rank 0 writes the files
         self.timer = timer = PhaseTimer()
         # an unindexed --results_folder arrives as a list (the CLI indexes
         # it first, io/config.py generate_results_folder)
@@ -146,13 +155,17 @@ class Simulation:
             folder = folder[0] if len(folder) else os.getcwd()
         self.folder = str(folder)
         os.makedirs(self.folder, exist_ok=True)
-        write_arguments_file(args, self.folder)
-        self.device = resolve_device(args.device[0])
-        n_shards = int(args.n_shards[0]) or 1
-        if n_shards > 1:
-            raise NotImplementedError(
-                f"{n_shards} particle shards (multi-GPU) are not ported yet (ROADMAP queue 1, item 12)"
+        if self.writes:
+            write_arguments_file(args, self.folder)
+        n_shards = 1 if comm is None else comm.size
+        asked = int(args.n_shards[0])
+        if asked > 1 and asked != n_shards:
+            raise ValueError(
+                f"--n_shards {asked} runs {asked} ranks: start them with "
+                f"python -m nanokappa_torch.cli or parallel/launch.py launch, "
+                f"each with its ShardComm"
             )
+        self.device = resolve_device(args.device[0]) if comm is None else comm.device
 
         # --- material -------------------------------------------------------
         with timer.phase("setup_material"):
@@ -178,11 +191,11 @@ class Simulation:
             self.rtab = build_reservoir_tables(material, dom, dt, rho, device=self.device)
         self.params = SimParams(
             dt=dt,
-            n_cap=round_pool_cap(int(n_p * float(args.pool_margin[0]))),
-            inj_cap=autosize_inj_cap(self.rtab),
+            n_cap=round_pool_cap(int(n_p * float(args.pool_margin[0])), n_shards),
+            inj_cap=autosize_inj_cap(self.rtab, n_shards),
             # c_max autosized so the per-(reservoir, mode) loop can hold the
-            # highest entry rate
-            c_max=autosize_c_max(self.rtab) if res_gen in ("constant", "fixed_rate") else 3,
+            # highest entry rate of one shard
+            c_max=autosize_c_max(self.rtab, n_shards) if res_gen in ("constant", "fixed_rate") else 3,
             energy_normal=str(args.energy_normal[0]),
             temp_interp=str(args.temp_interp[0]),
             res_gen=res_gen,
@@ -191,6 +204,7 @@ class Simulation:
             n_active_modes=material.n_active_modes,
             t_reference=t_ref,
             evt_cap=int(getattr(args, "evt_cap", [0])[0]),
+            n_shards=n_shards,
         )
 
         # --- tables ---------------------------------------------------------
@@ -198,7 +212,8 @@ class Simulation:
             self.btab = build_boundary_tables(
                 material, dom, self.params.scat_model, device=self.device
             )
-        write_specular_correspondences(self.btab, material, dom, self.folder)
+        if self.writes:
+            write_specular_correspondences(self.btab, material, dom, self.folder)
         self.mtab = material.device_tables(self.device)
 
         # --- state ----------------------------------------------------------
@@ -215,6 +230,8 @@ class Simulation:
             n_p = len(occupation)
             part_dist = "random_domain"
         with timer.phase("setup_state"):
+            # a rank builds the global state on the host and keeps its
+            # segment (the JAX driver's init_state + shard_state)
             self.state = init_state(
                 material, dom, self.geo, self.params, n_p, self.btab,
                 temp_dist=str(args.temp_dist[0]),
@@ -222,8 +239,10 @@ class Simulation:
                 subvol_temp=[float(t) for t in args.subvol_temp],
                 seed=int(args.seed[0]),
                 empty_subvols=[int(i) for i in args.empty_subvols],
+                host_only=comm is not None,
                 **kw,
             )
+            self.state = shard_state(self.state, comm, self.geo, dt)
 
         # kappa path (reference --path_points / snap_path,
         # classes/Geometry.py:1070-1188)
@@ -260,13 +279,16 @@ class Simulation:
         self.contains_check = make_contains_check(
             self.geo, torch.as_tensor(interior, dtype=torch.float32, device=self.device), dt
         )
-        self._repair_gen = torch.Generator(device=self.device).manual_seed(int(args.seed[0]) + 777)
+        self._repair_gen = torch.Generator(device=self.device).manual_seed(
+            shard_seed(int(args.seed[0]) + 777, 0 if comm is None else comm.rank)
+        )
         self.n_escaped_total = 0
+        self._host_cache = None  # (step, gathered particles) of a sharded run
 
         self.conv_writer = writers.ConvergenceWriter(
             self.folder, dom.n_of_subvols, dom.n_of_reservoirs, dom.subvol_type,
             dom.subvol_connections,
-        )
+        ) if self.writes else None
 
     # ------------------------------------------------------------------ run
 
@@ -275,17 +297,25 @@ class Simulation:
         built 1-datapoint tail runner and the finaliser for the current
         parameters: the v2 step's applies its pending deferred RTA, the v1
         step has none. On the v1 step the reason is logged."""
-        self.run_steps = build_step(
-            self.geo, self.mtab, self.btab, self.rtab, self.params,
-            n_inner=N_DT_TO_CONV, n_outer=CONV_BATCH,
-        )
+        self.run_steps = self._runner(CONV_BATCH)
         self._run_tail = None
         self.v1_reason = v2_fallback_reason(self.geo, self.params)
         if self.v1_reason is None:
             self._finalize = make_finalize(self.geo, self.mtab, self.params)
         else:
-            print(f"NOTE: running the v1 step (no fused drift kernel): {self.v1_reason}", flush=True)
+            self._say(f"NOTE: running the v1 step (no fused drift kernel): {self.v1_reason}")
             self._finalize = lambda s: s
+
+    def _runner(self, n_outer: int):
+        return build_sharded_step(
+            self.geo, self.mtab, self.btab, self.rtab, self.params, self.comm,
+            n_inner=N_DT_TO_CONV, n_outer=n_outer,
+        )
+
+    def _say(self, msg: str):
+        """Print on rank 0 (every rank holds the same outputs)."""
+        if self.writes:
+            print(msg, flush=True)
 
     def _rebuild_step(self, evt_cap: int):
         """Rebuild the runners with a wider event window (frozen-storm
@@ -337,6 +367,8 @@ class Simulation:
         return row
 
     def _write_convergence(self, row):
+        if self.conv_writer is None:
+            return
         self.conv_writer.write_row(
             self.current_timestep,
             self.current_timestep * self.params.dt,
@@ -377,7 +409,8 @@ class Simulation:
         self.max_residue = float(np.nanmax(residue))
         self.max_residue_qt = names[int(np.nanargmax(np.nan_to_num(residue)))]
         self.old_mean = mean
-        writers.append_residue(self.folder, residue)
+        if self.writes:
+            writers.append_residue(self.folder, residue)
 
         if self.max_residue < self.conv_crit:
             self.conv_count += 1
@@ -391,7 +424,8 @@ class Simulation:
         """Frozen-storm detection: `frozen` counts boundary events postponed
         because the event window overflowed. More than 1% of the pool in the
         last 100 steps doubles the window (at most MAX_REGROWS times, capped
-        at n_cap/4) and rebuilds the runners."""
+        at n_cap/4) and rebuilds the runners. On a sharded run the frozen
+        count is the ranks' sum, so every rank rebuilds together."""
         frozen_now = int(last_row["frozen"]) if last_row else 0
         d_frozen = frozen_now - self._frozen_prev
         self._frozen_prev = frozen_now
@@ -401,14 +435,14 @@ class Simulation:
         new_cap = min(2 * cur, self.params.n_cap // 4)
         if self.evt_regrows < MAX_REGROWS and new_cap > cur:
             self.evt_regrows += 1
-            print(f"NOTE: {d_frozen} boundary events frozen in the last 100 steps "
-                  f"(event window overflow) — growing evt_cap {cur} -> {new_cap} "
-                  f"(regrow {self.evt_regrows}/{MAX_REGROWS})", flush=True)
+            self._say(f"NOTE: {d_frozen} boundary events frozen in the last 100 steps "
+                      f"(event window overflow) — growing evt_cap {cur} -> {new_cap} "
+                      f"(regrow {self.evt_regrows}/{MAX_REGROWS})")
             self._rebuild_step(evt_cap=new_cap)
         else:
-            print(f"WARNING: {d_frozen} boundary events frozen in the last 100 steps "
-                  f"(event window overflow at evt_cap {cur}) — rerun with a larger "
-                  f"evt_cap", flush=True)
+            self._say(f"WARNING: {d_frozen} boundary events frozen in the last 100 steps "
+                      f"(event window overflow at evt_cap {cur}) — rerun with a larger "
+                      f"evt_cap")
 
     def _report_lost(self, last_row):
         """Name the mechanism whenever the population loses lanes."""
@@ -425,8 +459,8 @@ class Simulation:
              "check the geometry for open seams"),
         ):
             if d > 0:
-                print(f"WARNING: lost {int(d)} particles in the last 100 steps to "
-                      f"{name} — {hint}", flush=True)
+                self._say(f"WARNING: lost {int(d)} particles in the last 100 steps to "
+                          f"{name} — {hint}")
 
     def run(self, verbose: bool = True, profile_dir: str | None = None):
         args = self.args
@@ -439,7 +473,7 @@ class Simulation:
         while (
             self.current_timestep < iterations
             and not self.finish_sim
-            and (time.time() - t_start) < max_seconds
+            and not self._out_of_time(time.time() - t_start, max_seconds)
         ):
             if iterations - self.current_timestep >= N_DT_TO_CONV * CONV_BATCH:
                 runner, nb = self.run_steps, CONV_BATCH
@@ -447,12 +481,13 @@ class Simulation:
                 # iteration counts that do not divide by the batch finish on
                 # a 1-datapoint runner (built on first need)
                 if self._run_tail is None:
-                    self._run_tail = build_step(
-                        self.geo, self.mtab, self.btab, self.rtab, self.params,
-                        n_inner=N_DT_TO_CONV,
-                    )
+                    self._run_tail = self._runner(1)
                 runner, nb = self._run_tail, 1
-            prof = profile_dir if (profile_dir and not profiled and self.current_timestep > 0) else None
+            prof = (
+                profile_dir
+                if (profile_dir and self.writes and not profiled and self.current_timestep > 0)
+                else None
+            )
             with trace(prof):
                 with timer.phase("device_step"):
                     self.state, outs = runner(self.state)
@@ -473,20 +508,23 @@ class Simulation:
                 self._regrow_if_frozen(last_row)
                 self._report_lost(last_row)
                 with timer.phase("repair"):
+                    # each rank repairs its own lanes; the count is summed
                     self.state, n_esc = self.contains_check(self.state, self._repair_gen)
+                    if self.comm is not None:
+                        (n_esc,) = self.comm.reduce_sums(n_esc)
                     self.n_escaped_total += int(n_esc)
                 self._update_residue()
                 # periodic checkpoint + figures (reference run_timestep,
                 # classes/Population.py:1729-1735)
                 self.write_final_state()
-                if len(args.fig_plot):
+                if len(args.fig_plot) and self.writes:
                     try:
                         from nanokappa_torch.visual import runtime_figures
 
                         runtime_figures(self)
                     except Exception:
                         pass
-                if verbose:
+                if verbose and self.writes:
                     info = "Timestep {:>5d} - max residue: {:>9.3e} ({:<9s}) [".format(
                         self.current_timestep, self.max_residue, self.max_residue_qt
                     )
@@ -495,17 +533,36 @@ class Simulation:
                     info += " ]"
                     print(info, flush=True)
         self.write_final_state()
-        if verbose:
+        if verbose and self.writes:
             print(timer.report(), flush=True)
         return last_row
 
+    def _out_of_time(self, elapsed: float, max_seconds: float) -> bool:
+        """--max_sim_time reached? On a sharded run rank 0's clock decides
+        for every rank (one all-reduce a batch, only under a time limit)."""
+        if max_seconds == float("inf"):
+            return False
+        if self.comm is None:
+            return elapsed >= max_seconds
+        over = torch.tensor([float(elapsed >= max_seconds and self.comm.rank == 0)],
+                            dtype=torch.float64, device=self.device)
+        return bool(self.comm.reduce_sums(over)[0].item())
+
     # -------------------------------------------------------------- outputs
 
-    def host_state(self) -> SimpleNamespace:
+    def host_state(self) -> SimpleNamespace | None:
         """The finalised particles on the host (the pending deferred RTA
         applied on a copy, as particle_data.txt is written; one
         device-to-host copy of the pool): `alive` (N,) bool, `mode`, `dev`,
-        `sv_col` (N,) and `pos` (N, 3) of every pool lane, and `T_sv`."""
+        `sv_col` (N,) and `pos` (N, 3) of every pool lane, and `T_sv`.
+        On a sharded run every rank must call it (a gather): rank 0 gets
+        the alive particles of every rank, in rank order, and the other
+        ranks None; a second call within one step (the figures after a
+        checkpoint) returns the first one's without a collective."""
+        if self.comm is not None:
+            if self._host_cache is None or self._host_cache[0] != self.current_timestep:
+                self._host_cache = (self.current_timestep, self._gather_host_state())
+            return self._host_cache[1]
         s = self._finalize(self.state)
         pool = s.pool.cpu().numpy()
         return SimpleNamespace(
@@ -514,6 +571,26 @@ class Simulation:
             dev=pool[C_DEV],
             sv_col=pool[C_SV].view(np.int32),
             pos=pool[0:3].T,
+            T_sv=s.T_sv.cpu().numpy(),
+        )
+
+    def _gather_host_state(self) -> SimpleNamespace | None:
+        """host_state of a sharded run: each rank's alive rows [mode, sv,
+        x, y, z, dev] (float32 bits) through host memory to rank 0 (gloo
+        takes no gather of CUDA tensors; this is the checkpoint path)."""
+        s = self._finalize(self.state)
+        pool = s.pool
+        rows = pool[[C_MODE, C_SV, 0, 1, 2, C_DEV]][:, pool[C_ALIVE] > 0.5]
+        got = self.comm.gather_host(rows.T.contiguous().cpu())
+        if got is None:
+            return None
+        a = got.numpy()
+        return SimpleNamespace(
+            alive=np.ones(len(a), bool),
+            mode=np.ascontiguousarray(a[:, 0]).view(np.int32),
+            dev=a[:, 5],
+            sv_col=np.ascontiguousarray(a[:, 1]).view(np.int32),
+            pos=a[:, 2:5],
             T_sv=s.T_sv.cpu().numpy(),
         )
 
@@ -535,6 +612,8 @@ class Simulation:
 
     def _write_final_state(self):
         s = self.host_state()
+        if not self.writes:
+            return
         alive = s.alive
         mode = np.clip(s.mode, 0, self.material.n_modes - 1)[alive]
         q, j = self.material.mode_to_qj(mode)

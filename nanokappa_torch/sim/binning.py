@@ -179,11 +179,24 @@ def bin_all(
     [e, e*vx, e*vy, e*vz, alive] (nanokappa_tpu/sim/binning.py bin_all
     :131; reference classes/Population.py:704-747). Returns (E_dev_sv (SV,)
     eV/A^3, phi_sv (SV,3) in eV/ps/A^2, Np_sv (SV,) i32)."""
+    return normalize_bins(
+        geo, mat, bin_sums(geo, energies, vel, sv, alive), energy_normal, particle_density
+    )
+
+
+def bin_sums(geo: DeviceGeometry, energies, vel, sv, alive) -> torch.Tensor:
+    """bin_all's raw (SV, 5) sums [e, e*vx, e*vy, e*vz, alive]: what the
+    shards of a sharded run add up before normalize_bins."""
     n_sv = geo.n_subvols
     vals = torch.cat(
         [energies[:, None], energies[:, None] * vel, alive.to(energies.dtype)[:, None]], dim=1
     )
-    sums = segment_sum(vals, torch.where(alive, sv, n_sv), n_sv)
+    return segment_sum(vals, torch.where(alive, sv, n_sv), n_sv)
+
+
+def normalize_bins(geo: DeviceGeometry, mat: MaterialTables, sums, energy_normal: str,
+                   particle_density: float):
+    """bin_all's normalisation of the raw sums: (E_dev_sv, phi_sv, Np_sv)."""
     e_sv = sums[:, 0]
     phi = sums[:, 1:4]
     np_sv = sums[:, 4].to(torch.int32)

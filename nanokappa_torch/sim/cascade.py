@@ -99,8 +99,8 @@ class _Buf:
 
 def v1_event_cap(params: SimParams) -> int:
     """EVT_CAP of the v1 cascade: the event compaction's width
-    (nanokappa_tpu/sim/cascade.py:154)."""
-    return pad8(params.evt_cap or max(params.inj_cap, params.n_cap // 16))
+    (nanokappa_tpu/sim/cascade.py:154), at one shard's pool."""
+    return pad8(params.evt_cap or max(params.inj_cap, params.n_cap // params.n_shards // 16))
 
 
 def _set_lanes(row: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
@@ -122,6 +122,35 @@ def run_cascade(
     gen: torch.Generator,
 ) -> SimState:
     """The v1 step's drift + boundary cascade on the plain 16-row pool,
+    IN PLACE, its tallies settled into the state's ledgers (see
+    cascade_tallies)."""
+    settle_cascade(state, geo.n_reservoirs, *cascade_tallies(
+        state, stale_idx, geo, mat, btab, params, gen
+    ))
+    return state
+
+
+def settle_cascade(state: SimState, R: int, ledger, lost, frozen) -> SimState:
+    """Add a cascade's tallies to the state: n_leaving, the reservoir
+    ledgers, the (3,) losses and the frozen count."""
+    state.n_leaving = ledger[:R, 4].to(torch.int32)
+    state.res_energy_balance = state.res_energy_balance - ledger[:R, 0]
+    state.res_heat_flux = state.res_heat_flux + ledger[:R, 1:4]
+    state.lost = state.lost + lost
+    state.frozen = state.frozen + frozen
+    return state
+
+
+def cascade_tallies(
+    state: SimState,
+    stale_idx: torch.Tensor,
+    geo: DeviceGeometry,
+    mat: MaterialTables,
+    btab: BoundaryTables,
+    params: SimParams,
+    gen: torch.Generator,
+):
+    """The v1 step's drift + boundary cascade on the plain 16-row pool,
     IN PLACE (nanokappa_tpu/sim/cascade.py run_cascade :133): the stale
     lanes' ray cast; one full-width drift of every alive lane by
     min(t_coll, remaining), written into the pool's C_POS, C_CF, C_TCOLL
@@ -130,8 +159,10 @@ def run_cascade(
     beyond EVT_CAP stay frozen for the step); the narrow machinery on their
     rows; the rows merged back by kernel D. Absorbed lanes stay dead where
     they are until kernel B compacts the pool (the port has no free list).
-    Ledgers, losses and frozen counts accumulate as device scalars: no
-    host read."""
+    Returns the step's tallies as device tensors, no host read: the
+    (R8, 5) ledger, the (3,) int32 losses [0, k_max-stuck, defective] and
+    the int32 frozen count, which a sharded step sums over the shards
+    before settle_cascade adds them to the state."""
     pool = state.pool
     if state.layout != "plain":
         raise ValueError(f"the v1 cascade runs the 'plain' pool, the state is {state.layout!r}")
@@ -183,15 +214,9 @@ def run_cascade(
     # pidx ascending + unique; its sentinel lanes are dropped
     scatter_rows(pool, rows_out.contiguous(), pidx)
 
-    state.n_leaving = ledger[:R, 4].to(torch.int32)
-    state.res_energy_balance = state.res_energy_balance - ledger[:R, 0]
-    state.res_heat_flux = state.res_heat_flux + ledger[:R, 1:4]
-    state.lost = state.lost + torch.stack(
-        [torch.zeros_like(lost_stuck), lost_stuck, lost_def]
-    ).to(torch.int32)
-    state.frozen = state.frozen + (frozen + frozen2 + still_stale.sum(dtype=torch.int32)).to(torch.int32)
     state.kernel_events[2] += swaps
-    return state
+    lost = torch.stack([torch.zeros_like(lost_stuck), lost_stuck, lost_def]).to(torch.int32)
+    return ledger, lost, (frozen + frozen2 + still_stale.sum(dtype=torch.int32)).to(torch.int32)
 
 
 def run_event_buffer(

@@ -81,12 +81,6 @@ from nanokappa_torch.sim.state import (
 )
 
 
-def _todo(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1, item {item})"
-    )
-
-
 TRI_KERNEL_MAX = 128  # triangles kernel A casts against in-kernel
 LARGE_TRI_MAX = 65536  # meshes beyond TRI_KERNEL_MAX up to this run kernel
 #   A with kernel_cast off and kernel E (its 512-chunk bound)
@@ -229,12 +223,10 @@ def v2_eligible(geo, params: SimParams) -> bool:
 
 
 def require_slice(geo, btab, params: SimParams, mat) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item that ports it, for
-    a configuration neither step of the port runs: several particle shards
-    (item 12). Every other configuration runs: the v2 step where
-    v2_eligible, the v1 step (sim/step.py make_step) elsewhere."""
-    if params.n_shards != 1:
-        raise _todo("particle-axis sharding (multi-GPU)", 12)
+    """Raise ValueError for a configuration neither step of the port can
+    run. Every other configuration runs, on one shard or several
+    (parallel/sharding.py): the v2 step where v2_eligible, the v1 step
+    (sim/step.py make_step) elsewhere."""
     if params.temp_interp == "linear" and geo.subvol_type == "slice" and geo.n_subvols < 2:
         raise ValueError("temp_interp='linear' needs at least 2 slices")
     if geo.n_reservoirs > 0 and params.res_gen not in RES_GENS:
@@ -320,12 +312,13 @@ def event_window(geo, mat, btab, params: SimParams) -> int:
     """EVT_CAP, the event window's width: on the v2 step kernel A's export
     cap and the tail advance of every step's append (the runner's
     compaction cadence in sim/step.py is sized from it); on the v1 step the
-    width of its event compaction (sim/cascade.py v1_event_cap)."""
+    width of its event compaction (sim/cascade.py v1_event_cap). Both size
+    at one shard's pool, n_cap // n_shards."""
     if not v2_eligible(geo, params):
         return v1_event_cap(params)
     return params.evt_cap or autosize_evt_cap(
         geo, mat, params, mirror_eligible(geo, btab, params, mat),
-        params.n_cap, btab=btab,
+        params.n_cap // params.n_shards, btab=btab,
     )
 
 
@@ -427,8 +420,15 @@ def make_step_v2(
     btab: BoundaryTables,
     rtab: ReservoirTables,
     params: SimParams,
+    comm=None,
 ):
-    """Returns step(state) -> (state, StepOutputs), advancing `state` in place."""
+    """Returns step(state) -> (state, StepOutputs), advancing `state` in
+    place. With `comm` (parallel/sharding.py ShardComm) the state is one
+    shard of the pool: the step's subvolume sums, ledger, losses and frozen
+    count are summed over the shards in one all-reduce before the
+    normalisation and the T(E) inversion, so every shard ends the step with
+    the same T_sv and outputs; `comm=None` is one shard, with no
+    collective."""
     from nanokappa_torch.ops.megastep import R8, drift_megastep, mega_config
     from nanokappa_torch.sim.step import StepOutputs
 
@@ -486,7 +486,8 @@ def make_step_v2(
         lost_inj = 0
         if R > 0:
             rows, n_valid, new_counter, dropped, props = sample_injections(
-                state.res_counter, geo, rtab, params, state.gen, state.n_leaving
+                state.res_counter, geo, rtab, params, state.gen, state.n_leaving,
+                shard=0 if comm is None else comm.rank,
             )
             if mirror:
                 mode_inj = torch.clamp(as_i32(rows[C_MODE]), 0, M - 1)
@@ -577,6 +578,12 @@ def make_step_v2(
 
         # 6. postlude: normalisation + T inversion (sim/binning.py semantics)
         sums = (kbins + ebins)[:SV]
+        ledger = kledger + mledger
+        lost = torch.stack([lost3 + lost_inj, lost_stuck, lost_def]).to(torch.int32)
+        frozen = (frozen_k + frozen2).to(torch.int32)
+        if comm is not None:
+            # the raw sums of every shard, before the normalisation
+            sums, ledger, lost, frozen = comm.reduce_sums(sums, ledger, lost, frozen)
         e_raw = sums[:, 0]
         phi_raw = sums[:, 1:4]
         np_sv = sums[:, 4].to(torch.int32)
@@ -594,17 +601,14 @@ def make_step_v2(
         E_sv = e_sv + lookup_E_of_T(mat, state.T_sv)
         T_new = lookup_T_of_E(mat, E_sv)
 
-        ledger = kledger + mledger
         state.T_sv = T_new
         state.Np_sv = np_sv
         state.tail = tail
         state.n_leaving = ledger[:R, 4].to(torch.int32)
         state.res_energy_balance = state.res_energy_balance - ledger[:R, 0]
         state.res_heat_flux = state.res_heat_flux + ledger[:R, 1:4]
-        state.lost = state.lost + torch.stack(
-            [lost3 + lost_inj, lost_stuck, lost_def]
-        ).to(torch.int32)
-        state.frozen = state.frozen + (frozen_k + frozen2).to(torch.int32)
+        state.lost = state.lost + lost
+        state.frozen = state.frozen + frozen
         state.kernel_events = state.kernel_events + torch.cat(
             [counts[3:5], swaps[None], counts[2:3]]
         )

@@ -22,7 +22,8 @@ sample_injections):
     below the fractional part (no accumulator); copy 0 arrives at
     dice / enter_prob;
   * 'one_to_one' (classes/Population.py:457-489): exactly as many
-    particles as left each reservoir in the previous step (n_leaving),
+    particles as left each reservoir in the previous step (n_leaving; on
+    several shards each regenerates its part of the global count),
     up to inj_cap // R a reservoir, modes by the Walker alias of
     enter_prob, arrival times uniform; the valid lanes of the
     (R, inj_cap // R) block are packed to the front by kernel C.
@@ -258,11 +259,20 @@ def _fixed_rate_lattice(rtab: ReservoirTables, params: SimParams, gen, dev):
     return (*inj, n_valid, max(total - n_valid, 0) + clipped)
 
 
-def _one_to_one(n_leaving: torch.Tensor, rtab: ReservoirTables, params: SimParams, gen, dev):
+def one_to_one_share(n_leaving, shard: int, n_shards: int):
+    """Shard `shard`'s part of the global n_leaving under 'one_to_one': the
+    quotient, plus one of the remainder on the low shards
+    (nanokappa_tpu/sim/reservoir.py:293-297), so the parts sum to it."""
+    return n_leaving // n_shards + (shard < n_leaving % n_shards)
+
+
+def _one_to_one(n_leaving: torch.Tensor, rtab: ReservoirTables, params: SimParams, gen, dev,
+                shard: int = 0):
     """The 'one_to_one' scheme's draws (nanokappa_tpu/sim/reservoir.py:289-318):
     (inj_res, inj_mode, inj_dtin (cap,), n_valid, dropped). Reservoir r
-    regenerates the n_leaving[r] particles that left it in the previous
-    step, in its block of per = inj_cap // R lanes (the rest are dropped),
+    regenerates its shard's part of the n_leaving[r] particles that left
+    it in the previous step (one_to_one_share), in its block of per =
+    inj_cap // R lanes (the rest are dropped),
     modes by the Walker alias of enter_prob (distribution-identical to the
     reference's roulette); kernel C packs the valid lanes of the (R, per)
     block to the front, in block order. n_leaving is read back once."""
@@ -271,7 +281,9 @@ def _one_to_one(n_leaving: torch.Tensor, rtab: ReservoirTables, params: SimParam
     R, M_tab = rtab.enter_alias.shape[:2]
     cap, dt = params.inj_cap, params.dt
     per = cap // R
-    share = n_leaving.to(device=dev, dtype=torch.int32)  # one shard: all of it
+    share = n_leaving.to(device=dev, dtype=torch.int32)
+    if params.n_shards > 1:
+        share = one_to_one_share(share, shard, params.n_shards)
     share_h = np.asarray(share.tolist(), dtype=np.int64)
     n_valid = int(np.minimum(share_h, per).sum())
     dropped = max(int(share_h.sum()) - n_valid, 0)
@@ -313,9 +325,12 @@ def sample_injections(
     params: SimParams,
     gen: torch.Generator,
     n_leaving: torch.Tensor | None = None,
+    shard: int = 0,
 ):
     """Generate this step's reservoir particles WITHOUT placing them;
-    'one_to_one' takes the previous step's (R,) n_leaving.
+    'one_to_one' takes the previous step's (R,) n_leaving, of which shard
+    `shard` of params.n_shards regenerates its part (every other scheme
+    runs at rate / n_shards with the shard's own accumulator).
 
     Returns (rows_T (16, cap) f32 packed columns, valid lanes first;
     n_valid (host int); new res_counter; dropped (host int); props
@@ -363,7 +378,9 @@ def sample_injections(
         else:
             if n_leaving is None:
                 raise ValueError("reservoir_gen='one_to_one' needs the previous step's n_leaving")
-            inj_res, inj_mode, inj_dtin, n_valid, dropped = _one_to_one(n_leaving, rtab, params, gen, dev)
+            inj_res, inj_mode, inj_dtin, n_valid, dropped = _one_to_one(
+                n_leaving, rtab, params, gen, dev, shard
+            )
         inj_pos = _facet_positions(geo, inj_res, gen, cap, dev)
 
     T_res = geo.res_temperature[inj_res]
@@ -385,7 +402,7 @@ def sample_injections(
     return rows, n_valid, new_counter, dropped, props
 
 
-def inject(state, geo: DeviceGeometry, rtab: ReservoirTables, params: SimParams):
+def inject(state, geo: DeviceGeometry, rtab: ReservoirTables, params: SimParams, shard: int = 0):
     """The v1 step's injection (nanokappa_tpu/sim/reservoir.py inject :408)
     on the port's pool discipline: this step's reservoir particles appended
     at the pool tail, as the v2 step appends them. The port has no free
@@ -406,7 +423,7 @@ def inject(state, geo: DeviceGeometry, rtab: ReservoirTables, params: SimParams)
     if rtab.n_reservoirs == 0:
         return torch.full((cap,), N, dtype=torch.int32, device=pool.device), 0
     rows, n_valid, new_counter, dropped, _ = sample_injections(
-        state.res_counter, geo, rtab, params, state.gen, state.n_leaving
+        state.res_counter, geo, rtab, params, state.gen, state.n_leaving, shard
     )
     # the valid rows come first: the lanes that fit are one slice
     tail = state.tail

@@ -287,6 +287,7 @@ def init_state(
     modes: np.ndarray | None = None,
     occupation: np.ndarray | None = None,
     empty_subvols=(),
+    host_only: bool = False,
 ) -> SimState:
     """The initial pool, built on the host exactly as the JAX package's
     init_state builds it (same NumPy draws in the same order), in the layout
@@ -295,7 +296,13 @@ def init_state(
     (the k model's degenerate split drawn), on "plain" with full lifetimes.
     Then moved to the geometry's device and given its first ray cast. A
     resumed run passes the particles of a particle_data.txt as positions,
-    modes and occupation: its cache is filled, and its split drawn, anew."""
+    modes and occupation: its cache is filled, and its split drawn, anew.
+    `host_only` keeps the state in host memory without its first ray cast:
+    the global state each rank of a sharded run builds from the run's seed
+    before parallel/sharding.py shard_state keeps the rank's segment (with
+    params.n_shards = S: the reservoir accumulators are (S, R, M), and the
+    live particles spread evenly, so each segment gets an equal share of
+    them and of dead-lane headroom)."""
     from nanokappa_torch.sim.boundary_tables import K_MODELS, combined_mirror_rows
     from nanokappa_torch.sim.fused import pool_layout, require_slice
 
@@ -422,7 +429,7 @@ def init_state(
     pool[C_ALIVE] = alive.astype(np.float32)
     pool[C_SV] = full(sv.astype(np.int32), 0).view(np.float32)
 
-    device = geo.device
+    device = torch.device("cpu") if host_only else geo.device
     state = SimState(
         pool=torch.as_tensor(pool, device=device),
         layout=layout,
@@ -443,7 +450,7 @@ def init_state(
         gen=make_generator(seed, device),
         step=0,
     )
-    return prime_collision_cache(state, geo, params.dt)
+    return state if host_only else prime_collision_cache(state, geo, params.dt)
 
 
 def prime_collision_cache(state: SimState, geo: DeviceGeometry, dt: float) -> SimState:

@@ -32,10 +32,10 @@ import torch
 from nanokappa_torch.constants import EVPSA2_IN_WM2
 from nanokappa_torch.ops.compact_pool import compact_pool
 from nanokappa_torch.sim.binning import (
-    bin_all, interp_T_particles, lookup_E_of_T, lookup_T_of_E, particle_energies,
-    subvol_id,
+    bin_sums, interp_T_particles, lookup_E_of_T, lookup_T_of_E, normalize_bins,
+    particle_energies, subvol_id,
 )
-from nanokappa_torch.sim.cascade import run_cascade
+from nanokappa_torch.sim.cascade import cascade_tallies, settle_cascade
 from nanokappa_torch.sim.fused import (
     event_window, make_step_v2, refresh_tau_T, require_slice, v2_eligible,
 )
@@ -68,20 +68,24 @@ def stack_outputs(outs: list[StepOutputs]) -> StepOutputs:
     )
 
 
-def make_step(geo, mat, btab, rtab, params: SimParams):
+def make_step(geo, mat, btab, rtab, params: SimParams, comm=None):
     """step(state) -> (state, StepOutputs), advancing `state` in place: the
     fused v2 step where the configuration is eligible (sim/fused.py
-    v2_eligible), else the v1 step."""
+    v2_eligible), else the v1 step. With `comm` (parallel/sharding.py
+    ShardComm) the state is one shard of the pool, and the step's sums are
+    added up over the shards in one all-reduce before they are normalised."""
     if v2_eligible(geo, params):
-        return make_step_v2(geo, mat, btab, rtab, params)
+        return make_step_v2(geo, mat, btab, rtab, params, comm)
     require_slice(geo, btab, params, mat)
+    R = geo.n_reservoirs
+    shard = 0 if comm is None else comm.rank
 
     def step(state: SimState):
         if state.layout != "plain":
             raise ValueError(f"the v1 step runs the 'plain' pool, the state is {state.layout!r}")
         # 1. reservoir injection, 2. drift + boundary cascade
-        stale_idx, lost_inj = inject(state, geo, rtab, params)
-        run_cascade(state, stale_idx, geo, mat, btab, params, state.gen)
+        stale_idx, lost_inj = inject(state, geo, rtab, params, shard)
+        ledger, lost, frozen = cascade_tallies(state, stale_idx, geo, mat, btab, params, state.gen)
 
         # 3. rebin + refresh temperatures (classes/Population.py:685-728);
         # the energies are taken against the SUBVOLUME temperature
@@ -92,9 +96,18 @@ def make_step(geo, mat, btab, rtab, params: SimParams):
         energies = particle_energies(
             pool[C_OMEGA], pool[C_DEV], alive, state.T_sv[sv.long()], params.t_reference,
         )
-        e_dev_sv, phi, np_sv = bin_all(
-            geo, mat, energies, pool[C_VEL].T, sv, alive,
-            params.energy_normal, params.particle_density,
+        sums = bin_sums(geo, energies, pool[C_VEL].T, sv, alive)
+        total_energy = energies.sum()
+        if comm is not None:
+            # the raw sums of every shard, before the normalisation
+            lost = torch.stack([lost[0] + lost_inj, lost[1], lost[2]])
+            lost_inj = 0
+            sums, total_energy, ledger, lost, frozen = comm.reduce_sums(
+                sums, total_energy, ledger, lost, frozen
+            )
+        settle_cascade(state, R, ledger, lost, frozen)
+        e_dev_sv, phi, np_sv = normalize_bins(
+            geo, mat, sums, params.energy_normal, params.particle_density,
         )
         phi = phi * EVPSA2_IN_WM2
         E_sv = e_dev_sv + lookup_E_of_T(mat, state.T_sv)
@@ -120,7 +133,7 @@ def make_step(geo, mat, btab, rtab, params: SimParams):
             phi_sv=phi,
             Np_sv=np_sv,
             N_p=np_sv.sum(),
-            total_energy=energies.sum(),
+            total_energy=total_energy,
             res_energy_balance=state.res_energy_balance,
             res_heat_flux=state.res_heat_flux,
             n_leaving=state.n_leaving,
@@ -148,7 +161,7 @@ def make_v2_block_runner(geo, mat, btab, params: SimParams, step, n_inner: int, 
     # only compaction reclaims dead lanes. Sub-blocks of m steps with m
     # sized so the appends cannot outrun ~N/5 of slack (the wire's kinetic
     # event window makes m smaller than the film's).
-    N = params.n_cap
+    N = params.n_cap // params.n_shards  # one shard's pool
     per_step = params.inj_cap
     if v2_eligible(geo, params):
         per_step += event_window(geo, mat, btab, params)

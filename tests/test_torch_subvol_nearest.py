@@ -247,7 +247,8 @@ def _gate_geo(**kw):
     # admitted on the fused step, 0 below)
     ({}, dict(res_gen="fixed_rate"), 0),
     ({}, dict(res_gen="one_to_one"), 0),
-    ({}, dict(n_shards=2), 12),
+    # (item 12, particle shards, is ported: admitted on the fused step, 0)
+    ({}, dict(n_shards=2), 0),
 ], ids=["voronoi257", "grid257", "voronoi_linear", "voronoi_radial", "slice513", "slice_radial",
         "reservoirs8", "triangles65537", "fixed_rate", "one_to_one", "shards2"])
 def test_require_slice_names_the_item(geo_kw, params_kw, item):

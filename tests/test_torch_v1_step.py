@@ -257,12 +257,12 @@ def test_v2_admits_the_fused_configurations():
     ({}, 10, True),
 ], ids=["fixed_rate", "one_to_one_v1", "shards", "shards_v1", "rows33"])
 def test_items_5_10_12_still_raise(params_kw, item, dkern, monkeypatch):
-    """Item 12 (particle shards) still raises on both steps. Items 5 (the
-    'fixed_rate' and 'one_to_one' reservoirs) and 10 (more than 32
-    rough-wall table rows with in-kernel diffuse reflection: kernel A's
-    partner mask takes ceil(rows / 32) words) are ported: admitted, on the
-    v1 step where the configuration is not v2-eligible (the name is kept
-    from when all three raised)."""
+    """Items 5 (the 'fixed_rate' and 'one_to_one' reservoirs), 10 (more
+    than 32 rough-wall table rows with in-kernel diffuse reflection: kernel
+    A's partner mask takes ceil(rows / 32) words) and 12 (particle shards,
+    parallel/sharding.py) are ported: admitted, on the v1 step where the
+    configuration is not v2-eligible (the name is kept from when all three
+    raised)."""
     from nanokappa_torch.sim import fused
     from nanokappa_torch.sim.state import SimParams
     from nanokappa_torch.sim.step import make_step
@@ -271,15 +271,9 @@ def test_items_5_10_12_still_raise(params_kw, item, dkern, monkeypatch):
     params = dataclasses.replace(
         SimParams(dt=1.0, n_cap=4096, inj_cap=512, temp_interp="nearest", res_gen="pooled"), **params_kw
     )
-    if item == 12:
-        with pytest.raises(NotImplementedError, match=rf"item {item}\b"):
-            fused.require_slice(_gate_geo(), SimpleNamespace(n_rows=33), params, None)
-        with pytest.raises(NotImplementedError, match=rf"item {item}\b"):
-            make_step(_gate_geo(), None, SimpleNamespace(n_rows=33), None, params)
-    else:
-        fused.require_slice(_gate_geo(), SimpleNamespace(n_rows=33), params, None)
-        if not fused.v2_eligible(_gate_geo(), params):
-            assert callable(make_step(_gate_geo(), None, SimpleNamespace(n_rows=33), None, params))
+    fused.require_slice(_gate_geo(), SimpleNamespace(n_rows=33), params, None)
+    if not fused.v2_eligible(_gate_geo(), params):
+        assert callable(make_step(_gate_geo(), None, SimpleNamespace(n_rows=33), None, params))
     # 33 rows on the v1 step: no kernel A, nothing to refuse
     fused.require_slice(_gate_geo(), SimpleNamespace(n_rows=33),
                         dataclasses.replace(params, res_gen="pooled", n_shards=1, temp_interp="radial"), None)

@@ -165,11 +165,10 @@ def test_constant_positions_cover_the_caps_by_area(wire):
     # off the mirror path and up to 256 grid centres, and refuses the rest)
     (dict(params=dict(temp_interp="linear"), geo=dict(subvol_type="grid")), 11),
     # (the id is kept from when the port refused the k model on the mirror
-    # path; it now runs it on the full 24-row mirror layout, and a k-model
-    # mirror configuration raises only for what it still refuses beside it,
-    # here particle shards)
-    (dict(params=dict(scat_model="k", n_shards=2), mirror=True), 12),
-    (dict(params=dict(n_shards=2)), 12),
+    # path; it now runs it on the full 24-row mirror layout, and particle
+    # shards beside it: item 12 is ported too, 0)
+    (dict(params=dict(scat_model="k", n_shards=2), mirror=True), 0),
+    (dict(params=dict(n_shards=2)), 0),
     (dict(geo=dict(subvol_type="grid", n_subvols=257)), 11),
     # (the id is kept from when meshes over 128 triangles raised; they now
     # run kernel A with kernel_cast off, and only meshes beyond kernel E's
