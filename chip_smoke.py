@@ -2,7 +2,8 @@
 """On-card smoke test of the PyTorch/CUDA port (`nanokappa_torch`).
 
     python3 chip_smoke.py     # film, nanowire, k films, plate, large mesh, star, reservoir
-                              # schemes, corrugated wire: 1e6 particles, 31^3 table;
+                              # schemes, corrugated wire, the 12-sided wire's eta sweep,
+                              # membranes: 1e6 particles, 31^3 table;
                               # the sharded film: 1e7 particles in two ranks
 
 Needs one CUDA card. In order it:
@@ -95,7 +96,31 @@ Needs one CUDA card. In order it:
      examples/corrugated_wire.txt (40 wall-table rows, kernel A's partner
      mask in two words), then kernel A on its pool against its twin and the
      rough hits on rows >= 32 split into specular and diffuse,
- 12. the sharded film (nanokappa_torch/parallel): (a) an NCCL world of
+ 12. (m) BASELINE config 3, the specularity sweep of tests/test_nanowire.py:
+     the 12-sided wire (48 triangles; under the velocity model its 45 and
+     135 degree walls, 4 of 12 table rows, have specular partners, the
+     rest none; the coverage of every row printed first) at eta = 0, 2
+     and 10 A through the driver entry, 300 steps each, kappa the mean of
+     the last 10 10-step blocks with its standard error: kappa(0) >
+     kappa(2) > kappa(10) > 0, neighbours 3 standard errors apart or more,
+     kappa(10) / kappa(0) printed beside the JAX test's 0.8, the wire's
+     gates at every eta; at eta = 0 the specular and diffuse hits per row
+     over three kernel A launches on its pool (specular on every covered
+     row and on no other), then kernel A on that pool against its twin
+     (the partial mask); (n) the membrane box of tests/test_interfaces.py
+     (doubled sheets through an STL): (n1) every facet at eta = 10 A, no
+     reservoirs, 300 single v2 steps through the library entry with every
+     lane followed from step to step: each side's lanes the initial
+     state's once the removed lanes and those that changed side are
+     counted, every side change within a step's reach of the membrane's
+     rim (the reference cast's backward slack and edge ties) and under
+     1e-7 per particle-step, frozen 0; (n3) kernel A's
+     two-sided branch on its pool against its twin, the membrane's diffuse
+     hits of a launch split by side, none re-emitted through the wall;
+     (n2) reservoirs at 305 / 295 K and the eta = 2 A membrane through the
+     CLI's entry, nanokappa_torch.cli.main, 300 steps: population within
+     5%, lost <= 2% of N, the 4 slices' T_sv falling,
+ 13. the sharded film (nanokappa_torch/parallel): (a) an NCCL world of
      one rank on the card, 10 v2 steps of the bench film through
      build_sharded_step bit for bit against build_step from one state and
      seed; (b) two gloo ranks on cuda:0 (NCCL refuses two ranks on one
@@ -109,7 +134,7 @@ Needs one CUDA card. In order it:
      its set-up time, ms/step and the host time of its all-reduce; (c) with
      two cards or more, (b) over NCCL with one rank a card (else one line
      says it was not run),
- 13. splits each kernel A, C and D check's call by kernel name
+ 14. splits each kernel A, C and D check's call by kernel name
      (torch.profiler) and counts its kernel launches a call (kernel C's
      must be 1 at every width), last: a profiler session can leave hooks
      that add host time to every later launch, and the main paths are
@@ -193,6 +218,30 @@ V1_FILM_STEPS = 100  # the bench film on the v1 step, against the v2 film
 # examples/corrugated_wire.txt (40 wall-table rows, the k model)
 NEW_STEPS = 300
 CORR_FILE = "examples/corrugated_wire.txt"
+# BASELINE config 3, the specularity sweep (tests/test_nanowire.py:22): the
+# wire's length, width, slices and caps on a 12-sided cylinder (48
+# triangles; its 45 and 135 degree walls, 4 of its 12 table rows, have
+# specular partners under the velocity model, the other 8 none), rough
+# side walls at each eta of SWEEP_ETAS, 'constant' reservoirs, NEW_STEPS
+# steps each through the driver; kappa from the last SWEEP_BLOCKS 10-step
+# blocks (the driver's convergence window, --n_mean)
+WIRE12 = dict(WIRE, dimensions=(4e3, 500.0, 12))
+SWEEP_ETAS = (0.0, 2.0, 10.0)
+SWEEP_BLOCKS = 10
+JAX_SWEEP_RATIO = 0.8  # tests/test_nanowire.py:68: kappa(10) < 0.8 kappa(0)
+# the membrane box of tests/test_interfaces.py:22 (2000 x 1000 x 1000 A, the
+# internal wall at x = 1000 A as two coincident sheets, through an STL):
+# (n1) every facet rough at eta = 10 A, no reservoirs, two slices (one a
+# side), the v2 step; (n2) T reservoirs at 305 / 295 K on the x faces, the
+# membrane at eta = 2 A (picked by its interior probe point), the other
+# walls eta = 0, four slices, through the CLI
+MEMBRANE_TIGHT = dict(subvolumes=("slice", 2, 0), bound_pos=("relative",), bound_cond=("R",),
+                      bound_values=(10.0,), connect_pos=("relative",))
+MEMBRANE_TRANSPORT = dict(
+    subvolumes=("slice", 4, 0),
+    bound_pos=("relative", -0.1, 0.5, 0.5, 1.1, 0.5, 0.5, 0.5, 0.5, 0.5),
+    bound_cond=("T", "T", "R", "R"), bound_values=(305.0, 295.0, 2.0, 0.0), connect_pos=("relative",),
+)
 
 
 def card_line() -> str:
@@ -1644,11 +1693,12 @@ def si_one_to_one_main(mat, card, device):
     return launches, checks, rec
 
 
-def rough_row_share(pool, T_sv, cfg, geo, btab, seeds=(1, 2, 3)):
-    """(specular, diffuse) hits on wall-table rows >= 32 over one kernel A
-    launch per seed on copies of `pool`: a flagged lane exports with
-    C_TCOLL = -2 and its facet in C_CF; a diffused lane stays with a new
-    mode and its facet in C_ONF."""
+def row_hits(pool, T_sv, cfg, geo, btab, seeds=(1, 2, 3)):
+    """(specular, diffuse) rough-wall hits per wall-table row, (NU,) int64
+    each, over one kernel A launch per seed on copies of `pool`: a flagged
+    lane exports with C_TCOLL = -2 and its facet in C_CF; a diffused lane
+    stays with a new mode and its facet in C_ONF (the row: its front row;
+    a membrane's back-side hits count on the front row too)."""
     import torch
 
     from nanokappa_torch.ops import megastep
@@ -1656,22 +1706,30 @@ def rough_row_share(pool, T_sv, cfg, geo, btab, seeds=(1, 2, 3)):
     from nanokappa_torch.sim.state import C_ALIVE, C_CF, C_MODE, C_ONF, C_TCOLL
 
     row_of = torch.as_tensor(dkern_facet_tables(geo, btab)["facet_row"], device=pool.device)
-    F = row_of.shape[0]
+    F, NU = row_of.shape[0], btab.n_rows
 
     def rows(facets):
         f = facets.long()
-        return torch.where((f >= 0) & (f < F), row_of[f.clamp(0, F - 1)], -1)
+        return torch.where((f >= 0) & (f < F), row_of[f.clamp(0, F - 1)], NU)
 
-    spec = diff = 0
+    spec = torch.zeros(NU + 1, dtype=torch.int64, device=pool.device)
+    diff = torch.zeros_like(spec)
     for seed in seeds:
         p = pool.clone()
         rx, _, counts, _, _ = megastep.drift_megastep(p, T_sv, True, cfg, seed=seed)
         k = int(counts[2])
         flagged = rx[C_TCOLL, :k] < -1.5
-        spec += int((rows(rx[C_CF, :k].view(torch.int32))[flagged] >= 32).sum())
+        spec += torch.bincount(rows(rx[C_CF, :k].view(torch.int32))[flagged], minlength=NU + 1)
         changed = (p[C_ALIVE] > 0.5) & (p[C_MODE].view(torch.int32) != pool[C_MODE].view(torch.int32))
-        diff += int((rows(p[C_ONF].view(torch.int32))[changed] >= 32).sum())
-    return spec, diff
+        diff += torch.bincount(rows(p[C_ONF].view(torch.int32))[changed], minlength=NU + 1)
+    return spec[:NU].cpu().numpy(), diff[:NU].cpu().numpy()
+
+
+def rough_row_share(pool, T_sv, cfg, geo, btab, seeds=(1, 2, 3)):
+    """(specular, diffuse) hits on wall-table rows >= 32 over one kernel A
+    launch per seed on copies of `pool` (row_hits)."""
+    spec, diff = row_hits(pool, T_sv, cfg, geo, btab, seeds)
+    return int(spec[32:].sum()), int(diff[32:].sum())
 
 
 def corrugated_main(mat, card, device):
@@ -1715,6 +1773,415 @@ def corrugated_main(mat, card, device):
     del pool
     shutil.rmtree(td, ignore_errors=True)
     return launches, checks, rec
+
+
+def sweep_main(mat, card, device):
+    """BASELINE config 3: the 12-sided wire at each eta of SWEEP_ETAS through
+    the driver (every facet table and the partner mask printed first, at
+    this grid), each run's kappa the mean of its last SWEEP_BLOCKS 10-step
+    blocks with its standard error; at eta = 0, the specular and diffuse
+    hits per wall-table row over three kernel A launches on its pool, and
+    kernel A on that pool against its twin (the partial mask: 4 of 12 rows
+    with partners). Returns ({eta: launches}, checks, A's record)."""
+    import numpy as np
+    import torch
+
+    from nanokappa_torch.ops.megastep import mega_config
+    from nanokappa_torch.sim.fused import dkern_facet_tables, event_window, mirror_eligible
+    from nanokappa_torch.sim.state import C_ALIVE, C_CF, STALE
+
+    t0 = time.perf_counter()
+    dom, geo, btab = build_ctx(mat, dict(WIRE12, bound_values=(305.0, 295.0, 0.0, 0.0)), device)
+    corr = btab._host["corr"]
+    cov = (corr >= 0).mean(axis=1)
+    nrm = btab._host["u_normals"]
+    ang = np.degrees(np.arctan2(nrm[:, 1], nrm[:, 0])) % 360.0
+    print(f"sweep: the 12-sided wire at {MESH}^3: {geo.tri_origin.shape[0]} triangles, {btab.n_rows} "
+          f"wall-table rows; specular-partner coverage per row (normal angle: coverage) "
+          f"{[(round(float(a), 1), round(float(c), 4)) for a, c in zip(ang, cov)]} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    covered = cov > 0
+    checks = {"sweep: some rows covered, some not (a partial partner mask)": bool(covered.any() and (~covered).any())}
+    del dom, geo, btab
+    kappa, launches, rec = {}, {}, None
+    for eta in SWEEP_ETAS:
+        tag = f"wire12 eta={eta:g}"
+        b = dict(WIRE12, bound_values=(305.0, 295.0, eta, eta))
+        sim, td, launch, st = driver_path(
+            tag, lambda d: cli_argv(b, d, device, NEW_STEPS, "constant", ("--n_mean", str(SWEEP_BLOCKS))),
+            mat, card, NEW_STEPS,
+        )
+        ks = np.array([w["kappa_total"] for w in sim.window], dtype=np.float64)
+        kappa[eta] = (float(ks.mean()), float(ks.std(ddof=1) / np.sqrt(len(ks))))
+        launches[eta] = launch
+        print(f"{tag}: kappa {kappa[eta][0]:.4f} +- {kappa[eta][1]:.4f} W/m/K (the last {len(ks)} "
+              f"10-step blocks: {[round(float(k), 3) for k in ks]})", flush=True)
+        checks.update(common_gates(tag, st, launch, 295.0, 305.0, stuck_gate=1e-6))
+        checks[f"{tag}: off the mirror path, in-kernel diffuse on"] = (
+            sim.state.layout == "plain"
+            and not mirror_eligible(sim.geo, sim.btab, sim.params, sim.mtab)
+        )
+        checks[f"{tag}: in-kernel diffuse re-emissions > 0"] = st["events"][0] > 0
+        if eta == 0.0:
+            cfg = mega_config(sim.geo, sim.mtab, sim.btab, sim.params,
+                              event_window(sim.geo, sim.mtab, sim.btab, sim.params))
+            ft = dkern_facet_tables(sim.geo, sim.btab)
+            pool = with_fresh(sim.state.pool, device)
+            n_fresh = int(((pool[C_CF].view(torch.int32) == STALE) & (pool[C_ALIVE] > 0.5)).sum())
+            spec, diff = row_hits(pool, sim.state.T_sv, cfg, sim.geo, sim.btab)
+            print(f"{tag}: rough hits per wall-table row over 3 launches on its pool: specular "
+                  f"{spec.tolist()}, diffuse {diff.tolist()}; flagged specular exports of the run "
+                  f"{st['events'][1]}", flush=True)
+            checks.update({
+                f"{tag}: one-sided rows (no membrane), the mask in 1 word": (
+                    not ft["two_sided"] and cfg.cmask_w == 1 and cfg.dkern
+                ),
+                f"{tag}: specular hits > 0 on every covered row": bool((spec[covered] > 0).all()),
+                f"{tag}: no specular hit on an uncovered row": bool((spec[~covered] == 0).all()),
+                # a covered row's wall lies on a mirror plane of the cubic
+                # grid: every mode that reaches it has its partner
+                f"{tag}: diffuse hits > 0 on every uncovered row": bool((diff[~covered] > 0).all()),
+                f"{tag}: flagged specular exports > 0": st["events"][1] > 0,
+            })
+            rec = check_megastep("drift_megastep[wire12 eta=0, partial mask]", pool, sim.state.T_sv, cfg, 3,
+                                 n_fresh * 45 * cfg.tris.shape[0])
+            del pool
+        shutil.rmtree(td, ignore_errors=True)
+        del sim
+        torch.cuda.empty_cache()
+    (k0, s0), (k2, s2), (k10, s10) = (kappa[e] for e in SWEEP_ETAS)
+    print(f"sweep: kappa(eta) {k0:.4f} +- {s0:.4f}, {k2:.4f} +- {s2:.4f}, {k10:.4f} +- {s10:.4f} W/m/K; "
+          f"kappa(10) / kappa(0) = {k10 / k0:.4f} (the JAX test asks < {JAX_SWEEP_RATIO}) on {card}",
+          flush=True)
+    checks.update({
+        "sweep: kappa(0) > kappa(2) > kappa(10) > 0": k0 > k2 > k10 > 0,
+        "sweep: kappa(0) - kappa(2) >= 3 standard errors": k0 - k2 >= 3.0 * np.hypot(s0, s2),
+        "sweep: kappa(2) - kappa(10) >= 3 standard errors": k2 - k10 >= 3.0 * np.hypot(s2, s10),
+    })
+    return launches, checks, rec
+
+
+def membrane_box(L=2e3, W=1e3, H=1e3):
+    """The box of tests/test_interfaces.py:22 with doubled membrane sheets
+    (what a two-solid STL export gives): L x W x H, the internal wall at
+    x = L/2 as two coincident sheets of opposite winding, 24 triangles."""
+    import numpy as np
+
+    from nanokappa_torch.geometry.mesh import TriMesh
+
+    xs = (0.0, L / 2, L)
+    v = np.array([(x, y, z) for x in xs for y in (0.0, W) for z in (0.0, H)], dtype=float)
+
+    def vid(i, j, k):
+        return i * 4 + j * 2 + k
+
+    faces = []
+
+    def quad(a, b, c, d):
+        faces.extend([[a, b, c], [a, c, d]])
+
+    quad(vid(0, 0, 0), vid(0, 0, 1), vid(0, 1, 1), vid(0, 1, 0))
+    quad(vid(2, 0, 0), vid(2, 1, 0), vid(2, 1, 1), vid(2, 0, 1))
+    for i in range(2):
+        quad(vid(i, 0, 0), vid(i + 1, 0, 0), vid(i + 1, 0, 1), vid(i, 0, 1))
+        quad(vid(i, 1, 0), vid(i, 1, 1), vid(i + 1, 1, 1), vid(i + 1, 1, 0))
+        quad(vid(i, 0, 0), vid(i, 1, 0), vid(i + 1, 1, 0), vid(i + 1, 0, 0))
+        quad(vid(i, 0, 1), vid(i + 1, 0, 1), vid(i + 1, 1, 1), vid(i, 1, 1))
+    quad(vid(1, 0, 0), vid(1, 0, 1), vid(1, 1, 1), vid(1, 1, 0))
+    quad(vid(1, 0, 0), vid(1, 1, 0), vid(1, 1, 1), vid(1, 0, 1))
+    return TriMesh(v, np.array(faces))
+
+
+def membrane_hits(pool, T_sv, cfg, dom, mem, seed=3):
+    """(front, back, crossed) over one kernel A launch on a copy of `pool`:
+    the lanes that diffused at the membrane facet, by the side they started
+    the step on (front: behind the facet's normal), and those of them whose
+    new mode points through the wall (a front hit must leave with v.n < 0,
+    a back hit with v.n > 0)."""
+    import torch
+
+    from nanokappa_torch.ops import megastep
+    from nanokappa_torch.sim.state import C_ALIVE, C_MODE, C_ONF
+
+    p = pool.clone()
+    megastep.drift_megastep(p, T_sv, True, cfg, seed=seed)
+    on = (p[C_ALIVE] > 0.5) & (p[C_ONF].view(torch.int32) == mem)
+    on &= p[C_MODE].view(torch.int32) != pool[C_MODE].view(torch.int32)
+    n = torch.as_tensor(dom.mesh.facet_normals[mem], dtype=torch.float32, device=pool.device)
+    side = (pool[0:3] - torch.as_tensor(dom.mesh.facet_centroids[mem], dtype=torch.float32,
+                                        device=pool.device)[:, None] * 1.0)
+    side = (side * n[:, None]).sum(0)  # < 0: behind the normal (the front region)
+    vdn = (p[3:6] * n[:, None]).sum(0)
+    front, back = on & (side < 0), on & (side > 0)
+    crossed = (front | back) & (vdn * side <= 0)
+    return int(front.sum()), int(back.sum()), int(crossed.sum())
+
+
+def membrane_sides(rows, mem_x, mem):
+    """(C, n) rows -> (n,) int8: -1 where the lane is on the x < mem_x side
+    of the membrane, +1 on the other, 0 for a dead lane. A lane within
+    0.1 A of the plane may sit a rounding past it (a flight cast once and
+    drifted step by step in float32 ends up to ~1e-2 A off the wall), and
+    Np_sv bins it by its x: such a lane is on the side it moves away from
+    while the membrane is its next hit, on the side it moves into when the
+    membrane is the facet it left, and elsewhere on the side of its x."""
+    import torch
+
+    from nanokappa_torch.sim.state import C_ALIVE, C_CF, C_ONF
+
+    d = rows[0] - mem_x
+    direction = torch.sign(rows[3])
+    toward = rows[C_CF].view(torch.int32) == mem
+    leaving = rows[C_ONF].view(torch.int32) == mem
+    near = (d.abs() < 0.1) & (direction != 0)
+    d = torch.where(near & toward, -direction, torch.where(near & leaving, direction, d))
+    return torch.where(rows[C_ALIVE] > 0.5, torch.sign(d), 0.0).to(torch.int8)
+
+
+def rim_distance(p, dom, mem):
+    """Distance (A) of (3, n) points to the rim of the membrane facet (the
+    edges where it meets the outer walls): the membrane spans the box's
+    whole y-z cross section at x = its centroid's x."""
+    import torch
+
+    lo = torch.as_tensor(dom.mesh.bounds[0], dtype=p.dtype, device=p.device)
+    hi = torch.as_tensor(dom.mesh.bounds[1], dtype=p.dtype, device=p.device)
+    dx = p[0] - float(dom.mesh.facet_centroids[mem][0])
+    dp = torch.stack([p[1] - lo[1], hi[1] - p[1], p[2] - lo[2], hi[2] - p[2]]).amin(0).clamp(min=0.0)
+    return torch.sqrt(dx * dx + dp * dp)
+
+
+def membrane_main(mat, card, device):
+    """(n1) the membrane box with every facet at eta = 10 A and no
+    reservoirs through the library entry on the v2 step, NEW_STEPS single
+    steps (the runner compacts the pool at each call, so every lane is
+    followed from step to step: a lane kernel A exports comes back in the
+    step's window at the tail, in export order) with the launch counters
+    zeroed just before: at every step each side's lanes are the initial
+    state's, bit for bit, once the lanes the narrow rounds removed (the
+    k_max quarantine) and the lanes that changed side are counted, and
+    every lane that changed side was within one step's flight (the
+    fastest mode's speed x dt) of the membrane's rim at both ends of its
+    step: the reference's cast takes hits up to 1e-4 ps behind a lane (no
+    facing test) and gives a tie at an edge to the lower facet id, so at
+    the rim a lane can reach the other side (ROADMAP queue 3); away from
+    the rim the two-sided rows keep every lane on its side; frozen 0.
+    (n3) kernel A's two-sided branch on its pool against its twin, with
+    the membrane's diffuse hits of one launch split by side. Returns
+    (launches, checks, A's record)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nanokappa_torch.geometry import stl
+    from nanokappa_torch.ops import compact, compact_pool, megastep
+    from nanokappa_torch.ops.megastep import mega_config
+    from nanokappa_torch.sim.fused import dkern_facet_tables, event_window, v2_eligible
+    from nanokappa_torch.sim.state import C_ALIVE, C_CF, STALE, init_state
+    from nanokappa_torch.sim.step import build_step
+
+    tag = "membrane (n1)"
+    td = tempfile.mkdtemp(prefix="chip_smoke_membrane_")
+    path = os.path.join(td, "membrane.stl")
+    stl.save_stl(membrane_box(), path)
+    t0 = time.perf_counter()
+    dom, geo, btab = build_ctx(mat, dict(MEMBRANE_TIGHT, geometry=path), device)
+    n_p, rtab, params = run_params(mat, dom, PARTICLES, "constant", device)
+    tabs = mat.device_tables(device)
+    ft = dkern_facet_tables(geo, btab)
+    mem = int(dom.mesh.interfacets[0])
+    mem_x = float(dom.mesh.facet_centroids[mem][0])
+    reach = float(tabs.omega_vel[:, 1:4].norm(dim=1).max()) * params.dt
+    evt = event_window(geo, tabs, btab, params)
+    state = init_state(mat, dom, geo, params, n_p, btab, temp_dist="mean", seed=SEED)
+    N = params.n_cap
+    side = membrane_sides(state.pool, mem_x, mem)
+    side0 = np.array([int((side < 0).sum()), int((side > 0).sum())])
+    print(f"{tag}: {geo.tri_origin.shape[0]} triangles, {geo.n_facets} facets (membrane {mem}: rows "
+          f"{ft['facet_row'][mem]} front / {ft['facet_row_back'][mem]} back, two-sided "
+          f"{ft['two_sided']}), {btab.n_rows} wall-table rows, {n_p} particles, pool {N}, evt_cap "
+          f"{evt}, lanes a side at step 0 {side0.tolist()}, a step's reach {reach:.1f} A (set-up "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    exported = {}
+    launch = megastep.drift_megastep
+
+    def captured(pool, *a, **k):
+        out = launch(pool, *a, **k)
+        exported["idx"], exported["k"] = out[1], out[2][2]
+        return out
+
+    megastep.drift_megastep = captured  # the step binds it when built
+    try:
+        run = build_step(geo, tabs, btab, rtab, params, n_inner=1)
+    finally:
+        megastep.drift_megastep = launch
+    mods = (megastep, compact_pool, compact)
+    for m in mods:
+        m.launches = 0
+    lane = torch.arange(N, device=device)
+    ids = torch.where(state.pool[C_ALIVE] > 0.5, lane, -1)  # a lane's identity: its initial slot
+    removed, crossed = np.zeros(2, np.int64), np.zeros(2, np.int64)
+    ok_counts, far, shown = True, 0, []
+    np_sv = set()
+    t0 = time.perf_counter()
+    for _ in range(NEW_STEPS):
+        slots = torch.nonzero(state.pool[C_ALIVE] > 0.5).flatten()  # the call's compaction
+        n_alive = slots.shape[0]
+        ids_c = torch.full((N,), -1, dtype=torch.int64, device=device)
+        ids_c[:n_alive] = ids[slots]
+        rows_b = state.pool[:, slots].clone()
+        side_b = membrane_sides(rows_b, mem_x, mem)
+        state, out = run(state)
+        idx, k = exported["idx"], int(exported["k"])
+        ids = ids_c.clone()
+        ids[idx[:k].long()] = -1  # exported lanes leave their slots ...
+        ids[n_alive:n_alive + k] = ids_c[idx[:k].long()]  # ... and come back in the window
+        ids = torch.where(state.pool[C_ALIVE] > 0.5, ids, -1)
+        side_a = membrane_sides(state.pool, mem_x, mem)
+        # each lane's side before and after, by its identity
+        by_id = torch.zeros(N, dtype=torch.int8, device=device)
+        by_id[ids_c[:n_alive]] = side_b
+        pos_b = torch.zeros((6, N), device=device)
+        pos_b[:, ids_c[:n_alive]] = rows_b[0:6]
+        alive_a = ids >= 0
+        after = torch.zeros(N, dtype=torch.int8, device=device)
+        after[ids[alive_a]] = side_a[alive_a]
+        gone = (by_id != 0) & (after == 0)
+        moved = (by_id != 0) & (after != 0) & (by_id != after)
+        for s, j in ((-1, 0), (1, 1)):
+            removed[j] += int((gone & (by_id == s)).sum())
+            crossed[j] += int((moved & (by_id == s)).sum())
+        if bool(moved.any()):
+            m_ids = torch.nonzero(moved).flatten()
+            slot_a = torch.full((N,), -1, dtype=torch.int64, device=device)
+            slot_a[ids[alive_a]] = lane[alive_a]
+            p_b = pos_b[0:3, m_ids]
+            p_a = state.pool[0:3, slot_a[m_ids]]
+            d_b, d_a = rim_distance(p_b, dom, mem), rim_distance(p_a, dom, mem)
+            far += int(((d_b > reach) | (d_a > reach)).sum())
+            for q in range(min(len(m_ids), 4 - len(shown))):
+                shown.append((p_b[:, q].tolist(), pos_b[3:6, m_ids[q]].tolist(), p_a[:, q].tolist(),
+                              float(d_b[q]), float(d_a[q])))
+        now = np.array([int((side_a < 0).sum()), int((side_a > 0).sum())])
+        # each side's lanes + its removed + those that left it - those that came
+        ok_counts &= bool((now + removed + crossed - crossed[::-1] == side0).all())
+        np_sv.add(tuple(out.Np_sv.tolist()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {m.__name__.rsplit(".", 1)[1]: m.launches for m in mods}
+    lost = out.lost_split.tolist()
+    events = state.kernel_events.tolist()
+    rate = crossed.sum() / (n_p * NEW_STEPS)
+    print(f"{tag}: removed lanes {lost} (drops, k_max-stuck, defective; {removed.tolist()} from the "
+          f"x < {mem_x:g} side and the other), lanes that changed side {crossed.tolist()} (from each "
+          f"side; {rate:.3g} per particle-step), {far} of them farther than a step's reach from the rim, "
+          f"frozen {int(out.frozen)}, Np_sv over the run {len(np_sv)} distinct values (min "
+          f"{min(np_sv)}, max {max(np_sv)}), launches {launches}, in-kernel diffuse {events[0]}, "
+          f"flagged specular exports {events[1]}; {wall / NEW_STEPS * 1e3:.3f} ms/step (single steps, "
+          f"each lane followed) on {card}", flush=True)
+    for p_b, v_b, p_a, d_b, d_a in shown:
+        print(f"{tag}: a lane that changed side: from {[round(x, 4) for x in p_b]} (v "
+              f"{[round(x, 3) for x in v_b]}) to {[round(x, 4) for x in p_a]}, {d_b:.3f} and {d_a:.3f} A "
+              f"from the rim", flush=True)
+    checks = {
+        f"{tag}: the v2 step": v2_eligible(geo, params),
+        f"{tag}: the membrane's rows two-sided": bool(ft["two_sided"]),
+        f"{tag}: frozen == 0": int(out.frozen) == 0,
+        f"{tag}: each side's lanes the initial state's once removed and side-changing lanes are counted":
+        ok_counts,
+        f"{tag}: the lanes followed and removed are the step's removed lanes": int(removed.sum()) == sum(lost),
+        f"{tag}: every side change within a step's reach of the membrane's rim": far == 0,
+        f"{tag}: side changes (the rim) under 1e-7 per particle-step": rate <= 1e-7,
+        f"{tag}: in-kernel diffuse re-emissions > 0": events[0] > 0,
+        f"{tag}: A, B, C launched": all(v > 0 for v in launches.values()),
+    }
+    # (n3) kernel A's two-sided branch on this pool
+    cfg = mega_config(geo, tabs, btab, params, evt)
+    pool = with_fresh(state.pool, device)
+    n_fresh = int(((pool[C_CF].view(torch.int32) == STALE) & (pool[C_ALIVE] > 0.5)).sum())
+    front, back, through = membrane_hits(pool, state.T_sv, cfg, dom, mem)
+    print(f"membrane (n3): diffuse hits on the membrane in one launch: front {front}, back {back}, "
+          f"re-emitted through the wall {through}", flush=True)
+    checks.update({
+        "membrane (n3): hits on both sides": front > 0 and back > 0,
+        "membrane (n3): no re-emission through the wall": through == 0,
+    })
+    rec = check_megastep("drift_megastep[membrane, two-sided]", pool, state.T_sv, cfg, 4,
+                         n_fresh * 45 * cfg.tris.shape[0])
+    del pool, state, run
+    shutil.rmtree(td, ignore_errors=True)
+    return launches, checks, rec
+
+
+def membrane_cli_main(mat, card, device):
+    """(n2) the membrane box with reservoirs at 305 / 295 K and the eta = 2 A
+    membrane through the CLI's entry, `nanokappa_torch.cli.main(argv)`,
+    for NEW_STEPS steps (the card's machine has no h5py to read a material
+    folder, so the driver's loader hands the CLI the 31^3 table; the run is
+    the CLI's own otherwise: results folder, arguments, Simulation, result
+    files), with the launch counters zeroed just before. Returns
+    (launches, checks)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nanokappa_torch import cli, driver
+    from nanokappa_torch.geometry import stl
+    from nanokappa_torch.ops import compact, compact_pool, megastep
+
+    tag = "membrane (n2)"
+    td = tempfile.mkdtemp(prefix="chip_smoke_membrane_cli_")
+    path = os.path.join(td, "membrane.stl")
+    stl.save_stl(membrane_box(), path)
+    made = []
+    base = driver.Simulation
+
+    class Captured(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    loader = driver.material_from_args
+    driver.material_from_args, driver.Simulation = (lambda args: mat), Captured
+    mods = (megastep, compact_pool, compact)
+    for m in mods:
+        m.launches = 0
+    t0 = time.perf_counter()
+    try:
+        cli.main(cli_argv(dict(MEMBRANE_TRANSPORT, geometry=path), os.path.join(td, "res"), device,
+                          NEW_STEPS, "constant"))
+        torch.cuda.synchronize()
+    finally:
+        driver.material_from_args, driver.Simulation = loader, base
+    wall = time.perf_counter() - t0
+    launches = {m.__name__.rsplit(".", 1)[1]: m.launches for m in mods}
+    sim = made[0]
+    row = sim.window[-1]
+    n0, n_alive = sim.n_p_target, int(row["N_p"])
+    lost, T = row["lost_split"], row["T"]
+    steps_t = sim.timer.calls["device_step"][-2:]
+    files = set(os.listdir(sim.folder))
+    print(f"{tag}: the CLI in {wall:.1f} s: {sim.geo.n_facets} facets, {sim.btab.n_rows} wall-table rows, "
+          f"{n0} particles, pool {sim.params.n_cap}; T_sv {[round(float(t), 3) for t in T]}, N_p {n_alive} "
+          f"(start {n0}), lost {lost.tolist()}, frozen {row['frozen']}, escaped {sim.n_escaped_total}, "
+          f"launches {launches}; {sum(steps_t) / 200 * 1e3:.3f} ms/step (device_step of the last 2 "
+          f"blocks) on {card}", flush=True)
+    checks = {
+        f"{tag}: population within 5%": abs(n_alive - n0) <= 0.05 * n0,
+        f"{tag}: lost <= 2% of N": int(sum(lost)) <= 0.02 * n0,
+        f"{tag}: T_sv in (295, 305)": bool(((T > 295.0) & (T < 305.0)).all()),
+        f"{tag}: the 4 slices' T_sv falling hot to cold": len(T) == 4 and bool((np.diff(T) < 0).all()),
+        f"{tag}: {NEW_STEPS} steps run": sim.current_timestep == NEW_STEPS,
+        f"{tag}: result files written": {"convergence.txt", "arguments.txt", "particle_data.txt"} <= files,
+        f"{tag}: A, C launched": launches["megastep"] > 0 and launches["compact"] > 0,
+    }
+    del sim, made
+    shutil.rmtree(td, ignore_errors=True)
+    return launches, checks
 
 
 # the sharded film (ROADMAP 1.1): the bench film at 10^7 particles in two
@@ -2187,6 +2654,20 @@ def main(device=None) -> None:
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']:.3g} "
               f"({r['match']})", flush=True)
     torch.cuda.empty_cache()
+    # ---- (m) BASELINE config 3, the specularity sweep; (n) membranes -------------
+    sw_launch, sw_checks, recs["wire12"] = sweep_main(mat, card, device)
+    checks.update(sw_checks)
+    mb_launch, mb_checks, recs["membrane"] = membrane_main(mat, card, device)
+    checks.update(mb_checks)
+    torch.cuda.empty_cache()
+    _, mc_checks = membrane_cli_main(mat, card, device)
+    checks.update(mc_checks)
+    for k in ("wire12", "membrane"):
+        r = recs[k]
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms (calls back to back {r['event_ms']:.4f}), plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
+              f"{r['max_abs_err']:.3g} ({r['match']}) on {card}", flush=True)
+    torch.cuda.empty_cache()
     # ---- the sharded film: one NCCL rank, two ranks on one card -------------
     checks.update(sharded_main(mat, card, device, (f_dom, f_geo, f_btab, f_rtab, f_params, f_np, tabs),
                                f_T[300]))
@@ -2218,6 +2699,8 @@ def main(device=None) -> None:
     recs["C_fixed_rate"]["launches"] = ge_launch["compact"]
     recs["C_one_to_one"]["launches"] = o2o_launch["compact"]
     recs["corrugated"]["launches"] = cw_launch["megastep"]
+    recs["wire12"]["launches"] = sw_launch[0.0]["megastep"]
+    recs["membrane"]["launches"] = mb_launch["megastep"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)

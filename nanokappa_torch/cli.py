@@ -17,9 +17,9 @@ simulation, no card). A plot that fails (e.g. no matplotlib) is reported
 and never stops the run.
 
 `--n_shards S` splits the particles over S ranks (parallel/launch.py): on
-cards one rank a card over NCCL (S above the visible cards is refused; 0,
-the default, takes every visible card), with `--device cpu` S processes
-over gloo (0 means one). Rank 0 writes the output and every result file.
+cards one rank a card over NCCL (S above the visible cards is refused),
+with `--device cpu` S processes over gloo; 0, the default, is one rank,
+as in the JAX driver. Rank 0 writes the output and every result file.
 """
 
 from __future__ import annotations

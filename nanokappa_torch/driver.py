@@ -25,7 +25,7 @@ sharded run: it builds the global initial state from the run's seed and
 keeps its segment, its step sums reduce over the ranks once a step, and
 rank 0 writes every result file, the particles of every rank gathered to
 it. `python -m nanokappa_torch.cli --n_shards S` starts the S ranks
-(parallel/launch.py; 0 = every visible card, one on the CPU); a Simulation
+(parallel/launch.py; 0 = one, as in the JAX driver); a Simulation
 built without a comm is one shard. Under --fig_plot the particle scatter
 figures are refreshed at every checkpoint (visual.py runtime_figures;
 matplotlib is imported there only, and a failed plot never stops the run).

@@ -60,7 +60,7 @@ def initialise_parser(debug_flag: bool = True) -> argparse.ArgumentParser:
     p.add_argument("--output", "-op", type=str, nargs=1, default="file", help=dbg('"file" redirects stdout to output.txt; "screen" prints.'))
 
     # extensions (not in the reference)
-    p.add_argument("--n_shards", "-ns", type=int, nargs=1, default=[0], help=dbg("Particle-axis shards, one rank each (0 = every visible card; one with --device cpu)."))
+    p.add_argument("--n_shards", "-ns", type=int, nargs=1, default=[0], help=dbg("Particle-axis shards, one rank each (0 = one rank, as 1)."))
     p.add_argument("--pool_margin", type=float, nargs=1, default=[1.4], help=dbg("Particle pool capacity / target population."))
     p.add_argument("--evt_cap", type=int, nargs=1, default=[0], help=dbg("Boundary-event buffer width (0 = autosize from the kinetic rough-wall collision rate)."))
     p.add_argument("--subvol_volume_algo", "-sva", type=str, nargs=1, default=["mc"], choices=["mc", "qmc"], help=dbg("Subvolume volume sampling: pseudo-random ('mc', reference default) or scrambled-Sobol ('qmc')."))

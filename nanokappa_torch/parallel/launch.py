@@ -68,14 +68,14 @@ def _rank_main(rank: int, fn, n_ranks: int, store: str, backend: str, devices, a
 
 
 def shard_count(n_shards: int, device: str) -> int:
-    """The ranks of `--n_shards n_shards --device device`: 0 is every
-    visible card on the card and one on the CPU (the JAX flag's "all local
-    devices", nanokappa_tpu/io/config.py:62). More shards than visible
-    cards raise, as a JAX mesh over too few devices does."""
+    """The ranks of `--n_shards n_shards --device device`: 0 is one rank,
+    as the JAX driver runs it (nanokappa_tpu/driver.py:149, `n_shards or
+    1`), on the card and on the CPU. More shards than visible cards raise,
+    as a JAX mesh over too few devices does."""
+    n = n_shards or 1
     if torch.device(device).type != "cuda":
-        return n_shards or 1
+        return n
     avail = torch.cuda.device_count()
-    n = n_shards or max(avail, 1)
     if n > 1 and n > avail:
         raise SystemExit(
             f"ERROR: --n_shards {n} needs {n} CUDA cards, one a rank; "

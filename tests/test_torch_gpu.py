@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import CORRUGATED, aim_at_rough_facets, compact_cases
+from torch_parity import CORRUGATED, aim_at_rough_facets, compact_cases, membrane_box, membrane_kw, wire12
 
 INT_ROWS = [9, 10, 12, 14, 15, 16]  # mode, facet, on-facet, alive, sv, partner
 FLOAT_ROWS = [0, 1, 2, 3, 4, 5, 6, 7, 8, 11, 13, 17]
@@ -929,6 +929,68 @@ def test_cuda_megastep_mask_words_matches_plain(cuda, rta_on, eta0):
         ex = np.zeros(pool.shape[1], bool)
         ex[ik[:k].cpu().numpy()] = True
         assert ex[:N][has].all() and ex[:N][rows >= 32].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eta0", [False, True], ids=["eta", "eta0"])
+@pytest.mark.parametrize("rta_on", [False, True])
+@pytest.mark.parametrize("case", ["membrane", "wire12"])
+def test_cuda_megastep_two_sided_and_partial_mask_match_plain(cuda, tmp_path, case, rta_on, eta0):
+    """Kernel A's triangle / plain / in-kernel-diffuse branch on the two
+    paths no other card test runs: the membrane box of
+    tests/test_interfaces.py (a doubled internal sheet through an STL, its
+    facet table two-sided) with 512 lanes aimed at the membrane from each
+    side, the back side's hits reading the back row; and the 12-sided wire
+    of BASELINE config 3 (velocity model: 4 of its 12 rows have partners,
+    a partial mask) at eta = 0 with lanes aimed at every side wall. Kernel
+    and twin agree bit for bit on the int rows and the exported indices;
+    with eta = 0 in the facet table the flagged lanes are exactly those
+    whose mode has a partner at the row their hit reads."""
+    import dataclasses
+
+    from nanokappa_torch.geometry import stl
+    from nanokappa_torch.ops.megastep import FT_ETA, drift_megastep, drift_megastep_plain
+    from nanokappa_torch.sim.fused import dkern_facet_tables
+
+    ctx = {}
+    if case == "membrane":
+        path = str(tmp_path / "membrane.stl")
+        stl.save_stl(membrane_box(doubled=True), path)
+        pool, T_sv, cfg = _plain_pool(cuda, membrane_kw(path, "tables"), ctx=ctx)
+        assert dkern_facet_tables(ctx["geo"], ctx["btab"])["two_sided"] and cfg.tris.shape[0] == 24
+        mem = [int(ctx["dom"].mesh.interfacets[0])]
+        N, _, _, has_f = aim_at_rough_facets(pool, ctx["dom"], ctx["geo"], ctx["btab"], 512, facets=mem)
+        Nb, _, _, has_b = aim_at_rough_facets(pool[:, N:], ctx["dom"], ctx["geo"], ctx["btab"], 512,
+                                              seed=2, back=True, facets=mem)
+        N, has = N + Nb, np.concatenate([has_f, has_b])
+    else:
+        pool, T_sv, cfg = _plain_pool(cuda, wire12(0.0 if eta0 else 2.0), ctx=ctx)
+        assert not dkern_facet_tables(ctx["geo"], ctx["btab"])["two_sided"] and cfg.tris.shape[0] == 48
+        N, _, rows, has = aim_at_rough_facets(pool, ctx["dom"], ctx["geo"], ctx["btab"])
+        covered = (ctx["btab"]._host["corr"] >= 0).any(axis=1)
+        assert covered.sum() == 4 and not has[~covered[rows]].any()
+    assert has.any() and (~has).any()
+    if eta0:
+        facets = cfg.facets.clone()
+        facets[:, FT_ETA] = 0.0
+        cfg = dataclasses.replace(cfg, facets=facets)
+    pk, pp = pool.clone(), pool.clone()
+    rk, ik, ck, lk, bk = drift_megastep(pk, T_sv, rta_on, cfg, seed=5)
+    rp, ip, cp, lp, bp = drift_megastep_plain(pp, T_sv, rta_on, cfg, seed=5)
+    torch.cuda.synchronize()
+    assert torch.equal(ck, cp) and int(cp[3]) > 0, (ck, cp)
+    ints = INT_ROWS[:-1]
+    for r in ints:
+        assert torch.equal(_bits(pk[r]), _bits(pp[r])), r
+    _close_rows(pk, pp, FLOAT_ROWS[:-1])
+    k = int(cp[2])
+    assert torch.equal(ik, ip)
+    for r in ints:
+        assert torch.equal(_bits(rk[r, :k]), _bits(rp[r, :k])), r
+    if eta0:
+        ex = np.zeros(pool.shape[1], bool)
+        ex[ik[:k].cpu().numpy()] = True
+        assert ex[:N][has].all()
 
 
 @pytest.mark.gpu

@@ -10,6 +10,7 @@ import dataclasses
 from types import SimpleNamespace
 
 import numpy as np
+import pytest
 import torch
 
 # the Si thin film: T/T reservoirs along x, eta = 0 (specular) z walls, one
@@ -75,6 +76,147 @@ def perforated_plate(L=3e3, W=3e3, H=1e3, a=600.0):
         faces += [[OB + k, OB + k2, OT + k], [OB + k2, OT + k2, OT + k]]
         faces += [[IB + k, IT + k, IB + k2], [IB + k2, IT + k, IT + k2]]
     return TriMesh(v, np.array(faces))
+
+
+# BASELINE config 3, the nanowire of tests/test_nanowire.py:22 wire_kappa: a
+# 12-sided cylinder 4000 A long and 500 A across (48 triangles, 14 facets),
+# T caps at 305 / 295 K, rough side walls at `eta`, 5 axial slices. Its
+# side normals lie at 15 + 30 k degrees: under the velocity model the 45
+# and 135 degree walls (4 of its 12 table rows) have specular partners on
+# the cubic grid, the other 8 none
+def wire12(eta: float) -> dict:
+    return dict(
+        geometry="cylinder",
+        dimensions=(4e3, 500.0, 12),
+        subvolumes=("slice", 5, 2),
+        bound_pos=("relative", 0.5, 0.5, -0.1, 0.5, 0.5, 1.1, 1.1, 0.5, 0.5),
+        bound_cond=("T", "T", "R", "R"),
+        bound_values=(305.0, 295.0, float(eta), float(eta)),
+        connect_pos=("relative",),
+    )
+
+
+def membrane_box(L=2e3, W=1e3, H=1e3, doubled=False):
+    """The box of tests/test_interfaces.py:22 as the port's TriMesh: L x W x
+    H with an internal wall at x = L/2 across the whole cross section (22
+    triangles, 7 facets); `doubled` emits the wall as two coincident sheets
+    of opposite winding (24 triangles), as a two-solid STL export does."""
+    from nanokappa_torch.geometry.mesh import TriMesh
+    xs = (0.0, L / 2, L)
+    v = np.array([(x, y, z) for x in xs for y in (0.0, W) for z in (0.0, H)], dtype=float)
+
+    def vid(i, j, k):
+        return i * 4 + j * 2 + k
+
+    faces = []
+
+    def quad(a, b, c, d):
+        faces.append([a, b, c])
+        faces.append([a, c, d])
+
+    quad(vid(0, 0, 0), vid(0, 0, 1), vid(0, 1, 1), vid(0, 1, 0))  # x = 0
+    quad(vid(2, 0, 0), vid(2, 1, 0), vid(2, 1, 1), vid(2, 0, 1))  # x = L
+    for i in range(2):  # two cells along x
+        quad(vid(i, 0, 0), vid(i + 1, 0, 0), vid(i + 1, 0, 1), vid(i, 0, 1))
+        quad(vid(i, 1, 0), vid(i, 1, 1), vid(i + 1, 1, 1), vid(i + 1, 1, 0))
+        quad(vid(i, 0, 0), vid(i, 1, 0), vid(i + 1, 1, 0), vid(i + 1, 0, 0))
+        quad(vid(i, 0, 1), vid(i + 1, 0, 1), vid(i + 1, 1, 1), vid(i, 1, 1))
+    quad(vid(1, 0, 0), vid(1, 0, 1), vid(1, 1, 1), vid(1, 1, 0))  # the membrane
+    if doubled:
+        quad(vid(1, 0, 0), vid(1, 1, 0), vid(1, 1, 1), vid(1, 0, 1))
+    return TriMesh(v, np.array(faces))
+
+
+# the membrane box's domains (tests/test_interfaces.py), for an STL at
+# `path`: "transport" (:80) T reservoirs at 305 / 295 K on the x faces, the
+# membrane rough at eta = 2 A (picked by its interior probe point), the
+# other walls eta = 0, 4 slices; "tables" (:135) the membrane at eta = 2 A,
+# the rest eta = 0, 2 slices; "tight" (:176) every facet rough at eta = 10 A
+# (diffuse), no reservoirs, 2 slices (one each side of the membrane)
+def membrane_kw(path: str, kind: str) -> dict:
+    if kind == "transport":
+        return dict(
+            geometry=path, subvolumes=("slice", 4, 0),
+            bound_pos=("relative", -0.1, 0.5, 0.5, 1.1, 0.5, 0.5, 0.5, 0.5, 0.5),
+            bound_cond=("T", "T", "R", "R"), bound_values=(305.0, 295.0, 2.0, 0.0),
+            connect_pos=("relative",),
+        )
+    if kind == "tables":
+        return dict(
+            geometry=path, subvolumes=("slice", 2, 0), bound_pos=("relative", 0.5, 0.5, 0.5),
+            bound_cond=("R", "R"), bound_values=(2.0, 0.0), connect_pos=("relative",),
+        )
+    assert kind == "tight"
+    return dict(
+        geometry=path, subvolumes=("slice", 2, 0), bound_pos=("relative",),
+        bound_cond=("R",), bound_values=(10.0,), connect_pos=("relative",),
+    )
+
+
+def membrane_lanes(td, tabs, per_side, seed):
+    """Fresh lanes just off the membrane on both sides, at random points of
+    its face away from its edges, each flying at it with its own mode's
+    velocity, the modes drawn by incident flux (front: v.n > 0 from the
+    region behind the normal; back: v.n < 0), `per_side` a side. Returns
+    (the (16, N) plain pool, side: +1 front / -1 back, the membrane facet,
+    the modes)."""
+    from nanokappa_torch.sim.state import C_ALIVE, C_CF, C_MODE, C_OMEGA, C_ONF, C_REM, C_TAU, STALE
+
+    mem = int(td.mesh.interfacets[0])
+    n = td.mesh.facet_normals[mem]
+    x0 = float(td.mesh.facet_centroids[mem][0])
+    ov = np_(tabs.omega_vel).astype(np.float64)
+    rng = np.random.default_rng(seed)
+    side = np.repeat([1.0, -1.0], per_side)
+    modes = np.zeros(2 * per_side, np.int64)
+    for s in (1.0, -1.0):
+        flux = np.maximum(s * (ov[:, 1:4] @ n), 0.0)
+        modes[side == s] = rng.choice(len(flux), per_side, p=flux / flux.sum())
+    N = 2 * per_side
+    pool = np.zeros((16, N), np.float32)
+    pool[0] = x0 - side * n[0] * 1e-3
+    pool[1] = rng.uniform(150.0, 850.0, N)
+    pool[2] = rng.uniform(150.0, 850.0, N)
+    pool[3:6] = ov[modes, 1:4].T
+    pool[C_OMEGA] = ov[modes, 0]
+    pool[C_TAU] = 1.0
+    pool[C_MODE] = modes.astype(np.int32).view(np.float32)
+    pool[C_CF] = np.full(N, STALE, np.int32).view(np.float32)
+    pool[C_ONF] = np.full(N, -1, np.int32).view(np.float32)
+    pool[C_REM] = 1.0
+    pool[C_ALIVE] = 1.0
+    return torch.as_tensor(pool), side, mem, modes
+
+
+def wire_kappa(mat, dom, n_steps: int = 400):
+    """tests/test_nanowire.py:22 wire_kappa on the port (on the CPU): the
+    12-sided wire `dom` (the port's domain of wire12(eta)) from the JAX
+    function's initial state (its pool
+    n_cap = 1.8 N is not a whole number of tiles, so both packages take
+    their v1 step), kappa_slice of every 10-step block from the first 60%
+    on. Returns (their mean, its standard error, the last outputs)."""
+    from nanokappa_torch.geometry.device import build_device_geometry
+    from nanokappa_torch.sim.boundary_tables import build_boundary_tables
+    from nanokappa_torch.sim.kappa import kappa_slice
+    from nanokappa_torch.sim.reservoir import build_reservoir_tables
+    from nanokappa_torch.sim.state import SimParams, init_state, particle_count
+    from nanokappa_torch.sim.step import build_step
+
+    n_p, rho = particle_count(("total", 8000), mat, dom)
+    params = SimParams(dt=1.0, n_cap=int(n_p * 1.8), inj_cap=8192, particle_density=rho,
+                       n_active_modes=mat.n_active_modes, t_reference=300.0)
+    geo = build_device_geometry(dom, device="cpu")
+    btab = build_boundary_tables(mat, dom, device="cpu")
+    rtab = build_reservoir_tables(mat, dom, params.dt, rho, device="cpu")
+    state = init_state(mat, dom, geo, params, n_p, btab, temp_dist="linear", seed=5)
+    run = build_step(geo, mat.device_tables("cpu"), btab, rtab, params, n_inner=10)
+    ks = []
+    for i in range(n_steps // 10):
+        state, out = run(state)
+        if i >= (n_steps // 10) * 3 // 5:
+            ks.append(kappa_slice(np_(out.T_sv), np_(out.phi_sv), np_(out.Np_sv),
+                                  np.array([305.0, 295.0]), 4e3, 2)[1])
+    return float(np.mean(ks)), float(np.std(ks, ddof=1) / np.sqrt(len(ks))), out
 
 
 # examples/voronoi_star.txt's domain: a 6-point star prism 5000 A long
@@ -152,6 +294,17 @@ def patch_lloyd(monkeypatch, centers=PLATE_CENTERS, equal_volumes=False):
         monkeypatch.setattr(sub, "lloyd_centers", lambda mesh, n, rng=None, **k: centers[:n].copy())
         if equal_volumes:
             monkeypatch.setattr(dom, "_mc_subvol_volume", vols)
+
+
+@pytest.fixture(scope="module")
+def few_threads():
+    """At most three torch threads for a module's tests (restored after):
+    the port's CPU steps are small ops, which more threads only contend for
+    while the test workers share the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 3))
+    yield
+    torch.set_num_threads(n)
 
 
 def jax_fields(obj) -> dict:
@@ -277,6 +430,20 @@ def craft_kmirror(btab_k, btab_v):
         **btab_k._host, "specularity": btab_v._host["specularity"], "corr": btab_v._host["corr"],
     })
     return crafted
+
+
+def split_velocity(mat):
+    """A copy of a Material (either package's) whose degenerate partner
+    branches differ in velocity: the second branch of each equal-frequency
+    pair (`mat.degeneracies`' j2) moves at 0.6 times its group velocity,
+    its direction kept, its frequency (so the pairs) unchanged. On the
+    synthetic tables partners share omega and velocity, so the k model's
+    degenerate split changes no trajectory there; on this one a swap
+    changes the lane's speed."""
+    gv = mat.group_vel.copy()
+    for q, _, j2 in mat.degeneracies:
+        gv[q, j2] *= 0.6
+    return dataclasses.replace(mat, group_vel=gv)
 
 
 def kmirror_pair(domain_kw=FILM, mesh=(6, 6, 6), temp_dist="linear", subvol_temp=(), seed=3, **kw):
@@ -446,12 +613,15 @@ def assert_drivers_agree(runs_j: list, runs_t: list, T_hot=302.0, T_cold=298.0):
         assert np.all(np.abs(mj - mt) <= 5.0 * np.sqrt(ej + et)), (key, mj, mt, np.sqrt(ej + et))
 
 
-def aim_at_rough_facets(pool, dom, geo, btab, per_facet: int = 48, seed: int = 1):
+def aim_at_rough_facets(pool, dom, geo, btab, per_facet: int = 48, seed: int = 1,
+                        back: bool = False, facets=None):
     """Overwrite the first lanes of a plain pool with fresh lanes 2 A
-    inside each rough facet, flying straight at it (20 A/ps along its
-    outward normal), `per_facet` a facet, with random modes. Returns
-    (N lanes, their modes, their facets' table rows, has: the mode has a
-    specular partner at that row)."""
+    inside each rough facet (or only `facets`), flying straight at it (20
+    A/ps along its outward normal), `per_facet` a facet, with random modes;
+    with `back`, 2 A beyond the facet flying against its normal, i.e. at
+    its back side (an internal membrane's other region). Returns (N lanes,
+    their modes, the table rows their hits read — the back rows with
+    `back` — and has: the mode has a specular partner at that row)."""
     from nanokappa_torch.geometry.domain import BC
     from nanokappa_torch.sim.fused import dkern_facet_tables
     from nanokappa_torch.sim.state import (
@@ -459,14 +629,15 @@ def aim_at_rough_facets(pool, dom, geo, btab, per_facet: int = 48, seed: int = 1
     )
 
     bc = np_(geo.facet_bc)
-    rough = np.nonzero(bc == int(BC.ROUGH))[0]
-    row_of = dkern_facet_tables(geo, btab)["facet_row"]
+    rough = np.nonzero(bc == int(BC.ROUGH))[0] if facets is None else np.asarray(facets)
+    ft = dkern_facet_tables(geo, btab)
+    row_of = ft["facet_row_back" if back else "facet_row"]
     corr = btab._host["corr"]
     lanes_f = np.repeat(rough, per_facet)
     N = len(lanes_f)
     rng = np.random.default_rng(seed)
     modes = rng.integers(0, corr.shape[1], N).astype(np.int32)
-    normals = dom.mesh.facet_normals[lanes_f]
+    normals = dom.mesh.facet_normals[lanes_f] * (-1.0 if back else 1.0)
     dev = pool.device
     pool[0:3, :N] = torch.as_tensor((dom.mesh.facet_centroids[lanes_f] - 2.0 * normals).T,
                                     dtype=torch.float32, device=dev)
