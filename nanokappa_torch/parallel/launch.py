@@ -56,7 +56,7 @@ def _rank_main(rank: int, fn, n_ranks: int, store: str, backend: str, devices, a
     if device.type == "cuda":
         torch.cuda.set_device(device)
     else:  # ranks on the CPU share its cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // n_ranks))
+        torch.set_num_threads(min(torch.get_num_threads(), max(1, (os.cpu_count() or 1) // n_ranks)))
     dist.init_process_group(
         backend, init_method=f"file://{store}", world_size=n_ranks, rank=rank,
         timeout=TIMEOUT,

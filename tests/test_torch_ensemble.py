@@ -8,15 +8,13 @@ import numpy as np
 import pytest
 
 from torch_parity import assert_same
-from torch_shard_ranks import ensemble
+from torch_shard_ranks import ensemble, start_ranks
 
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    from nanokappa_torch.parallel.launch import launch
-
     out = tmp_path_factory.mktemp("ensemble")
-    launch(ensemble, 4, str(out), "gloo", "cpu", str(out), 2, 2, 4000, 8192, 6, 5)
+    start_ranks(ensemble, 4, str(out), 2, 2, 4000, 8192, 6, 5)(120)
     return [dict(np.load(out / f"rank{r}.npz")) for r in range(4)]
 
 

@@ -29,9 +29,8 @@ wire_kappa.
 import numpy as np
 import pytest
 
-from torch_parity import aim_at_rough_facets, few_threads, np_, wire12, wire_kappa  # noqa: F401 (few_threads: a fixture)
+from torch_parity import aim_at_rough_facets, np_, wire12, wire_kappa
 
-pytestmark = pytest.mark.usefixtures("few_threads")
 
 ETAS = (0.0, 2.0, 10.0)
 KEYS = ("row_back", "row_of_rough", "diffuse_cdf", "specularity", "corr")

@@ -15,11 +15,9 @@ the blocks of steps 70-100), so that the two runs fit a file's 30 s.
 """
 
 import numpy as np
-import pytest
 
-from torch_parity import few_threads, wire12, wire_kappa  # noqa: F401 (few_threads: a fixture)
+from torch_parity import wire12, wire_kappa
 
-pytestmark = pytest.mark.usefixtures("few_threads")
 
 ETA = 10.0
 STEPS = 100

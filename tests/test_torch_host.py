@@ -152,7 +152,7 @@ def test_port_imports_without_jax():
         "print('ok')\n"
     )
     res = subprocess.run(
-        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
         env={**os.environ, "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")},
     )
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr

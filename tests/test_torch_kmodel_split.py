@@ -23,9 +23,8 @@ import dataclasses
 import numpy as np
 import pytest
 
-from torch_parity import FILM, build_pair, few_threads, np_, split_velocity  # noqa: F401 (few_threads: a fixture)
+from torch_parity import FILM, build_pair, np_, split_velocity
 
-pytestmark = pytest.mark.usefixtures("few_threads")
 
 STEPS = 200
 

@@ -42,9 +42,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import few_threads, membrane_box, membrane_kw, membrane_lanes, np_  # noqa: F401 (few_threads: a fixture)
+from torch_parity import membrane_box, membrane_kw, membrane_lanes, np_
 
-pytestmark = pytest.mark.usefixtures("few_threads")
 
 TABLE_KEYS = (
     "row_back", "row_of_rough", "diffuse_cdf", "specularity", "corr",

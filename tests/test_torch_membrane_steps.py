@@ -25,9 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import few_threads, membrane_box, membrane_kw, membrane_lanes, np_  # noqa: F401 (few_threads: a fixture)
-
-pytestmark = pytest.mark.usefixtures("few_threads")
+from torch_parity import membrane_box, membrane_kw, membrane_lanes, np_
 
 
 @pytest.fixture(scope="module")

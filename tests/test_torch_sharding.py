@@ -8,14 +8,13 @@ one-shard run and JAX build_sharded_step on 2 of conftest's 8 virtual
 devices, then the escape repair on two ranks (tests/test_sharding.py:112)."""
 
 import dataclasses
-import threading
 
 import numpy as np
 import pytest
 import torch
 
 from torch_parity import FILM, assert_same, build_pair, jax_fields, np_
-from torch_shard_ranks import film_two_shards, one_shard_film, port_film, world_of_one
+from torch_shard_ranks import film_two_shards, one_shard_film, port_film, start_ranks, world_of_one
 
 N_P, N_CAP, BLOCKS = 16000, 32768, 20
 
@@ -25,29 +24,14 @@ def two_ranks(tmp_path_factory):
     """The 2-rank film run and the port's one-shard film, each spawned once
     and side by side, while this process runs JAX build_sharded_step on 2
     devices."""
-    from nanokappa_torch.parallel.launch import launch
-
     out = tmp_path_factory.mktemp("shards")
-    err = []
-
-    def spawn(fn, n, *args):
-        try:
-            launch(fn, n, str(out), "gloo", "cpu", str(out), *args)
-        except Exception as e:  # re-raised below, in the test's thread
-            err.append(e)
-
-    threads = [
-        threading.Thread(target=spawn, args=(film_two_shards, 2, N_P, N_CAP, 4, BLOCKS)),
-        threading.Thread(target=spawn, args=(one_shard_film, 1, N_P, N_CAP, 3, BLOCKS)),
+    waits = [
+        start_ranks(film_two_shards, 2, str(out), N_P, N_CAP, 4, BLOCKS),
+        start_ranks(one_shard_film, 1, str(out), N_P, N_CAP, 3, BLOCKS),
     ]
-    for th in threads:
-        th.start()
     ref = dict(jax=jax_two_shards())
-    for th in threads:
-        th.join(timeout=600)
-        assert not th.is_alive()
-    if err:
-        raise err[0]
+    for wait in waits:
+        wait(120)
     ref["one"] = np.load(out / "one.npz")["T_sv"]
     ranks = [dict(np.load(out / f"rank{r}.npz")) for r in range(2)]
     return ranks, ref

@@ -7,11 +7,35 @@ inputs, small enough for the CPU (a 4^3 or 6^3 synthetic material, a
 from __future__ import annotations
 
 import dataclasses
+import os
 from types import SimpleNamespace
 
 import numpy as np
-import pytest
 import torch
+
+
+def thread_budget(workers, cores: int):
+    """Torch threads for each test process: the cores shared out over
+    pytest-xdist's workers (`workers` is PYTEST_XDIST_WORKER_COUNT), at
+    least one; None without xdist, where a process has the cores to
+    itself."""
+    if not workers:
+        return None
+    return max(1, cores // int(workers))
+
+
+# The one owner of the test workers' torch threads. Every xdist worker
+# collects every test file, so it imports this module before any test runs;
+# left alone, each worker's torch takes a thread a core of the cores that
+# the other workers share. Only torch is set, so the JAX package's tests
+# keep their defaults. A rank spawned with a function of
+# tests/torch_shard_ranks.py imports this module too and takes the budget;
+# other processes a test starts keep their defaults (a rank of the CLI on
+# the CPU takes its share of the cores, parallel/launch.py:_rank_main).
+BUDGET = thread_budget(os.environ.get("PYTEST_XDIST_WORKER_COUNT"), os.cpu_count() or 1)
+if BUDGET is not None:
+    torch.set_num_threads(BUDGET)
+    torch.set_num_interop_threads(BUDGET)
 
 # the Si thin film: T/T reservoirs along x, eta = 0 (specular) z walls, one
 # periodic y pair (BASELINE config 1, bench.py:build_ctx), shortened
@@ -294,17 +318,6 @@ def patch_lloyd(monkeypatch, centers=PLATE_CENTERS, equal_volumes=False):
         monkeypatch.setattr(sub, "lloyd_centers", lambda mesh, n, rng=None, **k: centers[:n].copy())
         if equal_volumes:
             monkeypatch.setattr(dom, "_mc_subvol_volume", vols)
-
-
-@pytest.fixture(scope="module")
-def few_threads():
-    """At most three torch threads for a module's tests (restored after):
-    the port's CPU steps are small ops, which more threads only contend for
-    while the test workers share the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 3))
-    yield
-    torch.set_num_threads(n)
 
 
 def jax_fields(obj) -> dict:

@@ -1,12 +1,15 @@
 """Rank functions of the port's sharded tests (tests/test_torch_sharding.py,
-tests/test_torch_ensemble.py), started by nanokappa_torch.parallel.launch
-on the CPU over gloo. A spawned rank imports this module, so it imports
-torch and the port only; each rank writes what the test reads into
+tests/test_torch_ensemble.py, tests/test_torch_launch_threads.py), started
+by nanokappa_torch.parallel.launch on the CPU over gloo through
+start_ranks. A spawned rank imports this module, so it imports torch and
+the port only; each rank writes what the test reads into
 `<out>/rank<r>.npz`."""
 
 from __future__ import annotations
 
+import multiprocessing
 import os
+import threading
 from dataclasses import fields
 from types import SimpleNamespace
 
@@ -14,6 +17,44 @@ import numpy as np
 import torch
 
 from torch_parity import FILM_FULL
+
+
+def start_ranks(fn, n_ranks: int, out_dir: str, *args):
+    """launch(fn, n_ranks, out_dir, "gloo", "cpu", out_dir, *args) in a
+    thread of this process. The returned wait(seconds) joins it and
+    re-raises a rank's error. If the ranks outlive `seconds` it kills every
+    process this one has spawned (the ranks of any other start_ranks still
+    running too) and fails: a hung rank fails its own tests, and neither
+    the suite's clock nor its cores."""
+    from nanokappa_torch.parallel.launch import launch
+
+    err = []
+
+    def run():
+        try:
+            launch(fn, n_ranks, out_dir, "gloo", "cpu", out_dir, *args)
+        except Exception as e:  # re-raised by wait, in the test's thread
+            err.append(e)
+
+    th = threading.Thread(target=run)
+    th.start()
+
+    def wait(seconds: float):
+        th.join(timeout=seconds)
+        if th.is_alive():
+            for p in multiprocessing.active_children():
+                p.kill()
+            th.join(timeout=30)  # launch sees its ranks die and returns
+            raise AssertionError(f"{fn.__name__} on {n_ranks} ranks outlived {seconds} s")
+        if err:
+            raise err[0]
+
+    return wait
+
+
+def report_threads(comm, out_dir: str):
+    """The torch threads the launcher left this rank."""
+    _save(out_dir, comm.rank, threads=np.int64(torch.get_num_threads()))
 
 
 def port_film(n_p: int, n_cap: int, n_shards: int, mesh=(6, 6, 6), res_gen="constant",
@@ -68,7 +109,7 @@ def film_two_shards(comm, out_dir: str, n_p: int, n_cap: int, seed: int, blocks:
     from nanokappa_torch.sim.repair import make_contains_check
     from nanokappa_torch.sim.state import C_ALIVE, C_CF, C_POS
 
-    torch.set_num_threads(2)  # small ops: more threads only contend
+    torch.set_num_threads(min(torch.get_num_threads(), 2))  # small ops: more threads only contend
     f = port_film(n_p, n_cap, comm.size)
     state = shard_state(global_state(f, seed), comm, f.geo, f.params.dt)
     g = torch.Generator()
@@ -132,7 +173,7 @@ def one_shard_film(comm, out_dir: str, n_p: int, n_cap: int, seed: int, blocks: 
     its T_sv into `<out>/one.npz`."""
     from nanokappa_torch.sim.step import build_step
 
-    torch.set_num_threads(2)
+    torch.set_num_threads(min(torch.get_num_threads(), 2))
     f = port_film(n_p, n_cap, 1)
     state = global_state(f, seed, host_only=False)
     run = build_step(f.geo, f.tabs, f.btab, f.rtab, f.params, n_inner=10)
