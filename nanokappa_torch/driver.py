@@ -50,6 +50,7 @@ from nanokappa_torch.io.config import write_arguments_file
 from nanokappa_torch.io.trace import PhaseTimer, trace
 from nanokappa_torch.material import load_material
 from nanokappa_torch.material.tables import Material, bose_einstein
+from nanokappa_torch.native import CheckpointFormatter, checkpoint_threads, usable_cores
 from nanokappa_torch.parallel.sharding import build_sharded_step, shard_seed, shard_state
 from nanokappa_torch.sim.boundary_tables import (
     build_boundary_tables, write_specular_correspondences,
@@ -124,6 +125,8 @@ def domain_from_args(args) -> Domain:
 N_DT_TO_CONV = 10  # timesteps per convergence datapoint (Population.py:41)
 CONV_BATCH = 10  # datapoints per host read
 MAX_REGROWS = 3  # event-window regrows of one run
+# the pool rows host_state() reads, in the order of its host copy
+HOST_ROWS = (0, 1, 2, C_MODE, C_SV, C_DEV, C_ALIVE)
 
 
 def host_outputs(out: StepOutputs) -> StepOutputs:
@@ -284,6 +287,14 @@ class Simulation:
         )
         self.n_escaped_total = 0
         self._host_cache = None  # (step, gathered particles) of a sharded run
+        self._host_rows = None  # host copy of the pool's HOST_ROWS, made at first use
+        # the occupation at T_ref of every mode, as occupation_of adds it
+        self._checkpoint = CheckpointFormatter(
+            bose_einstein(self.params.t_reference, material.omega.reshape(-1)),
+            material.n_branches,
+        )
+        self._cores = None  # usable host cores, read at the first checkpoint
+        self.checkpoint_threads = 0  # threads of the last checkpoint's formatting
 
         self.conv_writer = writers.ConvergenceWriter(
             self.folder, dom.n_of_subvols, dom.n_of_reservoirs, dom.subvol_type,
@@ -534,7 +545,7 @@ class Simulation:
                     print(info, flush=True)
         self.write_final_state()
         if verbose and self.writes:
-            print(timer.report(), flush=True)
+            print(timer.report(checkpoint_threads=self.checkpoint_threads), flush=True)
         return last_row
 
     def _out_of_time(self, elapsed: float, max_seconds: float) -> bool:
@@ -552,27 +563,43 @@ class Simulation:
 
     def host_state(self) -> SimpleNamespace | None:
         """The finalised particles on the host (the pending deferred RTA
-        applied on a copy, as particle_data.txt is written; one
-        device-to-host copy of the pool): `alive` (N,) bool, `mode`, `dev`,
-        `sv_col` (N,) and `pos` (N, 3) of every pool lane, and `T_sv`.
-        On a sharded run every rank must call it (a gather): rank 0 gets
-        the alive particles of every rank, in rank order, and the other
-        ranks None; a second call within one step (the figures after a
-        checkpoint) returns the first one's without a collective."""
+        applied on a copy, as particle_data.txt is written): `alive` (N,)
+        bool, `mode`, `dev`, `sv_col` (N,) and `pos` (N, 3) of every pool
+        lane, and `T_sv`. Only the pool rows these read are copied, into
+        one host buffer (pinned for a card's pool) that the next call
+        overwrites. On a sharded run every rank must call it (a gather):
+        rank 0 gets the alive particles of every rank, in rank order, and
+        the other ranks None; a second call within one step (the figures
+        after a checkpoint) returns the first one's without a collective."""
         if self.comm is not None:
             if self._host_cache is None or self._host_cache[0] != self.current_timestep:
                 self._host_cache = (self.current_timestep, self._gather_host_state())
             return self._host_cache[1]
         s = self._finalize(self.state)
-        pool = s.pool.cpu().numpy()
+        rows = self._copy_host_rows(s.pool)
         return SimpleNamespace(
-            alive=pool[C_ALIVE] > 0.5,
-            mode=pool[C_MODE].view(np.int32),
-            dev=pool[C_DEV],
-            sv_col=pool[C_SV].view(np.int32),
-            pos=pool[0:3].T,
+            alive=rows[6] > 0.5,
+            mode=rows[3].view(np.int32),
+            dev=rows[5],
+            sv_col=rows[4].view(np.int32),
+            pos=rows[0:3].T,
             T_sv=s.T_sv.cpu().numpy(),
         )
+
+    def _copy_host_rows(self, pool: torch.Tensor) -> np.ndarray:
+        """The pool's HOST_ROWS as a (7, N) float32 host array: five copies
+        (rows 0-2 in one) into a buffer allocated at the first call."""
+        n = pool.shape[1]
+        buf = self._host_rows
+        if buf is None or buf.shape[1] != n:
+            buf = self._host_rows = torch.empty(
+                (len(HOST_ROWS), n), dtype=pool.dtype, pin_memory=pool.is_cuda
+            )
+        buf[0:3].copy_(pool[0:3], non_blocking=True)
+        for i, r in enumerate(HOST_ROWS[3:], start=3):
+            buf[i].copy_(pool[r], non_blocking=True)
+        self._sync()
+        return buf.numpy()
 
     def _gather_host_state(self) -> SimpleNamespace | None:
         """host_state of a sharded run: each rank's alive rows [mode, sv,
@@ -600,27 +627,38 @@ class Simulation:
         carry arbitrary mode bits: clipped before the table lookup (callers
         mask by `alive`)."""
         mode = np.clip(np.asarray(state.mode), 0, self.material.n_modes - 1)
-        omega = self.material.omega.reshape(-1)[mode]
-        return np.asarray(state.dev, dtype=float) + bose_einstein(self.params.t_reference, omega)
+        return np.asarray(state.dev, dtype=float) + self._checkpoint.be_table[mode]
 
     def write_final_state(self):
         """particle_data.txt of the finalised state (the pending deferred RTA
         applied on a copy, so the occupations are the reference's end-of-step
-        ones) and the window's subvolume files."""
+        ones) and the window's subvolume files. Every byte is written before
+        it returns; its phases: the host copy (`write_state.copy`), the
+        rows' formatting (`write_state.format`) and the file's write
+        (`write_state.write`)."""
         with self.timer.phase("write_state"):
             self._write_final_state()
 
     def _write_final_state(self):
-        s = self.host_state()
+        timer = self.timer
+        with timer.phase("write_state.copy"):
+            s = self.host_state()
         if not self.writes:
             return
-        alive = s.alive
-        mode = np.clip(s.mode, 0, self.material.n_modes - 1)[alive]
-        q, j = self.material.mode_to_qj(mode)
-        writers.write_particle_data(
-            self.folder, np.stack([q, j], axis=1), s.pos[alive], self.occupation_of(s)[alive],
-            self.args.hdf_file, self.args.poscar_file,
-        )
+        with timer.phase("write_state.format"):
+            if self._cores is None:
+                self._cores = usable_cores()
+            self.checkpoint_threads = checkpoint_threads(len(s.alive), self._cores)
+            body = self._checkpoint(s.mode, s.pos, s.dev, s.alive, self.checkpoint_threads)
+        with timer.phase("write_state.write"):
+            writers.write_particle_data(
+                self.folder, body, self.args.hdf_file, self.args.poscar_file
+            )
+            self._write_window_files()
+
+    def _write_window_files(self):
+        """subvolumes.txt (and the connections' and the kappa path's files
+        off slices) over the convergence window."""
         if len(self.window) == 0:
             return
         W = list(self.window)

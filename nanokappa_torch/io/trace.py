@@ -32,13 +32,15 @@ class PhaseTimer:
     def total(self, name: str) -> float:
         return sum(self.calls.get(name, ()))
 
-    def report(self) -> str:
+    def report(self, **counts) -> str:
+        """Every phase's total and mean a call, then each of `counts`."""
         lines = ["phase timings:"]
         for name, ts in sorted(self.calls.items(), key=lambda kv: -sum(kv[1])):
             tot, n = sum(ts), len(ts)
             lines.append(
                 f"  {name:<24s} {tot:8.2f} s total, {tot / max(n, 1) * 1e3:8.2f} ms/call x{n}"
             )
+        lines += [f"  {name:<24s} {value}" for name, value in counts.items()]
         return "\n".join(lines)
 
 

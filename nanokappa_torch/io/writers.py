@@ -108,9 +108,11 @@ def append_residue(folder: str, residues: np.ndarray):
         f.write(" ".join("{:9.3e}".format(r) for r in residues) + "\n")
 
 
-def write_particle_data(folder: str, modes_qj: np.ndarray, positions: np.ndarray,
-                        occupation: np.ndarray, hdf_file, poscar_file):
-    """particle_data.txt (classes/Population.py:2078-2091)."""
+def write_particle_data(folder: str, body, hdf_file, poscar_file):
+    """particle_data.txt (classes/Population.py:2078-2091): its header, then
+    `body`, the formatted rows as byte buffers in file order (the bytes of
+    np.savetxt(fmt="%d, %d, %.3f, %.3f, %.3f, %.6e", header=header):
+    nanokappa_torch/native.py CheckpointFormatter)."""
     path = os.path.join(folder, "particle_data.txt")
     header = (
         "Particles final state data \n"
@@ -118,20 +120,11 @@ def write_particle_data(folder: str, modes_qj: np.ndarray, positions: np.ndarray
         + "hdf file = {}, POSCAR file = {}\n".format(hdf_file, poscar_file)
         + "q-point, branch, pos x [angs], pos y [angs], pos z [angs], occupation"
     )
-    from nanokappa_torch.native import format_particle_rows
-
-    body = format_particle_rows(
-        np.asarray(modes_qj[:, 0]), np.asarray(modes_qj[:, 1]),
-        np.asarray(positions, dtype=np.float64),
-        np.asarray(occupation, dtype=np.float64),
-    )
-    # the bytes of np.savetxt(fmt="%d, %d, %.3f, %.3f, %.3f, %.6e",
-    # header=header), ~30x faster at the driver's every-100-step checkpoint
-    # cadence (1e6 rows)
     with open(path, "wb") as f:
         for line in header.split("\n"):
             f.write(b"# " + line.encode() + b"\n")
-        f.write(body)
+        for part in body:
+            f.write(part)
 
 
 def read_particle_data(path: str):
