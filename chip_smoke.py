@@ -33,8 +33,15 @@ Needs one CUDA card. In order it:
      run), each exactly as bench.py:run_config sizes it — 10^6 particles,
      pool = round_pool_cap(1.25 N), n_inner = n_outer = 10, 2 warm-up and
      3 timed runs — with every kernel's launch counter zeroed just before
-     and read just after, and checks the physics of each; between the
-     two, the same film on the v1 step (step_impl="v1": the plain pool,
+     and read just after, and checks the physics of each and which path
+     ran the narrow rounds (kernel F on the film's box, the torch rounds on
+     the wire's mesh); then holds kernel F against the torch rounds on the
+     film's own exports (100 more steps from its state, every
+     narrow-machinery call replayed on both paths from its generator
+     state: the rows, counts and generator bit for bit, the ledger to
+     rounding) and times it behind the spin kernel at the film's 2,048
+     lanes (round 1) and 512 (a round 2+ on that call's survivors); between
+     the two, the same film on the v1 step (step_impl="v1": the plain pool,
      the same seed's particles) for 100 steps, its T_sv held within 0.5 K
      of the v2 film's after its first 100,
   6. drives the film with linear temperatures and the film re-binned by a
@@ -51,7 +58,8 @@ Needs one CUDA card. In order it:
      its pool and kernel B on that 24-row pool; then the k-model,
      linear-temperature film with eta = 2 A walls (off the mirror path)
      like step 5, counting the narrow machinery's degenerate-branch swaps,
-     with kernel A's linear in-kernel-diffuse instantiation held against
+     with kernel F held on its exports as on the film's (its deeper chains,
+     the swap) and kernel A's linear in-kernel-diffuse instantiation held against
      its twin on its pool (the full branch's triangle instantiations are
      held on the wire's and the plate's pools with a crafted mirror cache),
   8. drives the perforated plate (BASELINE config 4: a 32-triangle STL
@@ -134,7 +142,7 @@ Needs one CUDA card. In order it:
      its set-up time, ms/step and the host time of its all-reduce; (c) with
      two cards or more, (b) over NCCL with one rank a card (else one line
      says it was not run),
- 14. splits each kernel A, C and D check's call by kernel name
+ 14. splits each kernel A, C, D and F check's call by kernel name
      (torch.profiler) and counts its kernel launches a call (kernel C's
      must be 1 at every width), last: a profiler session can leave hooks
      that add host time to every later launch, and the main paths are
@@ -706,6 +714,154 @@ def small_check(device, domain_kw, subvol_temp, tol):
     return float(np.abs(T1 - T0).max())
 
 
+def abc_launched(launches) -> bool:
+    """Kernels A, B and C each launched."""
+    return all(launches[k] > 0 for k in ("megastep", "compact_pool", "compact"))
+
+
+def ab_launched_c_for_chains(launches, steps: int) -> bool:
+    """Kernels A and B launched, and kernel C only where a narrow-machinery
+    call on kernel F reached rounds 2+ (pooled reservoirs: C compacts only
+    round 1's survivors, one launch for each call past one launch of F):
+    the mirror film's exports rarely chain, so C may not run at all."""
+    return (launches["megastep"] > 0 and launches["compact_pool"] > 0
+            and launches["compact"] <= launches["event_round"] - steps)
+
+
+def narrow_gate(tag, covered: bool) -> str:
+    """The name of the gate on which path ran the narrow rounds."""
+    if covered:
+        return f"{tag}: the narrow rounds on kernel F, once a step or more"
+    return f"{tag}: the narrow rounds on the torch rounds (kernel F not launched)"
+
+
+def narrow_ok(launches, covered: bool, steps: int) -> bool:
+    """Kernel F ran at least once a step where it covers the geometry
+    (ops/event_round.py covers) and never elsewhere."""
+    return launches["event_round"] >= steps if covered else launches["event_round"] == 0
+
+
+def capture_narrow(geo, tabs, btab, rtab, params, state, steps: int = 100) -> list[dict]:
+    """The narrow machinery's inputs at each of `steps` v2 steps run on from
+    a copy of `state`: fused.run_event_buffer wrapped (the step reads it
+    from the module when it runs), its rows, valid mask, temperatures and
+    generator state cloned at every call."""
+    import torch
+
+    from nanokappa_torch.sim import fused
+    from nanokappa_torch.sim.step import build_step
+
+    calls = []
+    inner = fused.run_event_buffer
+
+    def captured(rows, vbuf, geo_, mat_, btab_, params_, gen, T_sv, R8, evt2_cap=None, kernel=None):
+        calls.append(dict(rows=rows.clone(), vbuf=vbuf.clone(), T_sv=T_sv.clone(), gen=gen.get_state(),
+                          args=(geo_, mat_, btab_, params_), R8=R8, evt2_cap=evt2_cap, kernel=kernel))
+        return inner(rows, vbuf, geo_, mat_, btab_, params_, gen, T_sv, R8, evt2_cap=evt2_cap,
+                     kernel=kernel)
+
+    fused.run_event_buffer = captured
+    try:
+        build_step(geo, tabs, btab, rtab, params, n_inner=10, n_outer=steps // 10)(fork(state))
+        torch.cuda.synchronize()
+    finally:
+        fused.run_event_buffer = inner
+    return calls
+
+
+def check_event_round(name, calls):
+    """Kernel F against its plain twin, the torch rounds, on the narrow
+    machinery's inputs captured on a main path (capture_narrow): each call
+    replayed on both paths from its generator state, every lane's 16 rows
+    bit for bit, the counts and the generator's state after the call
+    exact, the ledger to float32 rounding, the input rows untouched;
+    kernel F's launches a call counted (two or more: rounds 2+). Timed on
+    the call with the most live lanes: round 1 at the buffer's width and a
+    round 2+ at the narrow width on that call's survivors, each behind the
+    spin kernel, each with its bound from the bytes of that call (the rows
+    read and written, the draws, the masks and indices); the whole
+    machinery on both paths by calls back to back. Returns the two
+    records."""
+    import torch
+
+    from nanokappa_torch.ops import event_round
+    from nanokappa_torch.ops.compact import compact_indices
+    from nanokappa_torch.sim.cascade import pad8, run_event_buffer
+
+    if not calls or any(c["kernel"] is None for c in calls):
+        raise AssertionError(f"{name}: no captured call ran on kernel F")
+    d = calls[0]["rows"].device
+    err, live, rounds = 0.0, 0, []
+    for c in calls:
+        rows0 = c["rows"].clone()
+        outs = []
+        for kern in (c["kernel"], None):
+            g = torch.Generator(device=d)
+            g.set_state(c["gen"])
+            before = event_round.launches
+            o = run_event_buffer(c["rows"], c["vbuf"], *c["args"], g, c["T_sv"], c["R8"],
+                                 evt2_cap=c["evt2_cap"], kernel=kern)
+            outs.append((o, g.get_state(), event_round.launches - before))
+        ((ok, lk, *ck), gk, nk), ((op, lp, *cp), gp, _) = outs
+        torch.cuda.synchronize()
+        if not (same_bits(ok, op) and [int(x) for x in ck] == [int(x) for x in cp]
+                and torch.equal(gk, gp) and same_bits(c["rows"], rows0)):
+            raise AssertionError(f"{name}: kernel F differs from the torch rounds on a captured call")
+        a, b = lk.double(), lp.double()
+        if not bool(((a - b).abs() <= 1e-6 * b.abs() + 1e-6 * b.abs().sum(0, keepdim=True)).all()):
+            raise AssertionError(f"{name}: kernel F's ledger differs from the torch rounds' beyond rounding")
+        err = max(err, float((a - b).abs().max()))
+        live += int(c["vbuf"].sum())
+        rounds.append(nk)
+    c = max(calls, key=lambda c: int(c["vbuf"].sum()))
+    tabs, vbuf, E = c["kernel"], c["vbuf"], c["rows"].shape[1]
+    E2 = pad8(max(c["evt2_cap"] if c["evt2_cap"] is not None else E // 4, 512))
+    call = event_round.RoundCall(tabs, c["rows"], vbuf, c["T_sv"], c["R8"], E2)
+    g = torch.Generator(device=d).manual_seed(1)
+    u1 = torch.rand((E, 4), generator=g, device=d)
+    u2 = torch.rand((E2, 4), generator=g, device=d)
+    call.launch(E, True, u4=u1)
+    idx2, n2 = compact_indices(call.pend, E2)
+    n2 = int(n2)
+    ms1 = device_timed(lambda: call.launch(E, True, u4=u1))
+    ms2 = device_timed(lambda: call.launch(E2, False, idx=idx2, u4=u2))
+
+    def machinery(kern):
+        gen = torch.Generator(device=d).manual_seed(2)
+        return lambda x: run_event_buffer(x, vbuf, *c["args"], gen, c["T_sv"], c["R8"],
+                                          evt2_cap=c["evt2_cap"], kernel=kern)
+
+    kernel_path = machinery(tabs)
+    event_ms, plain_ms = timed(kernel_path, c["rows"], 20), timed(machinery(None), c["rows"], 5)
+    row_b = 2 * 16 * 4  # one lane's rows read and written
+    b1, by1 = bound(E * (row_b + 16 + 2), 0)
+    b2, by2 = bound(E2 * 4 + min(n2, E2) * (row_b + 16), 0)
+    deep = sum(n > 1 for n in rounds)
+    print(f"{name}: kernel F bit-equal to the torch rounds on {len(calls)} captured calls ({live} live "
+          f"lanes, {deep} reaching rounds 2+, at most {max(rounds)} launches a call); timed on the call "
+          f"with {int(vbuf.sum())} live lanes, {n2} of them pending after round 1", flush=True)
+    base = dict(route="cuda", source="nanokappa_torch/csrc/event_round.cu",
+                replaces="none (nanokappa_tpu/sim/cascade.py:283,482 runs XLA-fused jnp)",
+                max_abs_err=err, match="bit-exact rows, counts and generator; ledger to rounding",
+                library_ms=None)
+    return [
+        dict(base, name=f"event_round[{name} round 1, {E} lanes]", ms=ms1, event_ms=event_ms,
+             plain_ms=plain_ms, bound_ms=b1, bound_by=by1, split=lambda: kernel_path(c["rows"])),
+        dict(base, name=f"event_round[{name} round 2+, {E2} lanes]", ms=ms2, event_ms=None,
+             plain_ms=None, bound_ms=b2, bound_by=by2),
+    ]
+
+
+def print_event_round(r1, r2, card) -> None:
+    """Kernel F's two records (check_event_round), printed."""
+    print(f"  {r1['name']}: kernel {r1['ms']:.4f} ms (the whole narrow machinery's calls back to back "
+          f"{r1['event_ms']:.4f}), plain (the torch rounds) {r1['plain_ms']:.4f} ms, bound "
+          f"{r1['bound_ms']:.2e} ms ({r1['bound_by']}), ledger max_abs_err {r1['max_abs_err']:.3g} "
+          f"({r1['match']}) on {card}", flush=True)
+    print(f"  {r2['name']}: kernel {r2['ms']:.4f} ms, bound {r2['bound_ms']:.2e} ms ({r2['bound_by']})",
+          flush=True)
+
+
 def main_path(name, mat, dom, geo, btab, rtab, params, n_p, tabs, card):
     """Drive one configuration through init_state -> build_step -> run with
     the launch counters zeroed just before and read just after: 2 warm-up
@@ -715,14 +871,14 @@ def main_path(name, mat, dom, geo, btab, rtab, params, n_p, tabs, card):
     the 500 steps, and T_at the T_sv after the first 100 and 300 steps."""
     import torch
 
-    from nanokappa_torch.ops import compact, compact_pool, megastep
+    from nanokappa_torch.ops import compact, compact_pool, event_round, megastep
     from nanokappa_torch.sim.state import init_state
     from nanokappa_torch.sim.step import build_step
 
     state = init_state(mat, dom, geo, params, n_p, btab, temp_dist="linear", seed=SEED)
     n0 = int(state.alive.sum())
     run = build_step(geo, tabs, btab, rtab, params, n_inner=10, n_outer=10)
-    mods = (megastep, compact_pool, compact)
+    mods = (megastep, compact_pool, compact, event_round)
     for m in mods:
         m.launches = 0
     T_at = {}
@@ -927,10 +1083,10 @@ def kfilm0_main(mat, card, device):
 
     from nanokappa_torch.driver import Simulation
     from nanokappa_torch.io.config import read_args
-    from nanokappa_torch.ops import compact, compact_pool, megastep
+    from nanokappa_torch.ops import compact, compact_pool, event_round, megastep
     from nanokappa_torch.sim.fused import event_window
 
-    mods = (megastep, compact_pool, compact)
+    mods = (megastep, compact_pool, compact, event_round)
     for m in mods:
         m.launches = 0
     t0 = time.perf_counter()
@@ -978,7 +1134,9 @@ def kfilm0_main(mat, card, device):
         "k film eta = 0: exports per step under the event window": events[3] / K0_STEPS < evt,
         "k film eta = 0: split share at init within 0.5 +- 0.005": abs(share - 0.5) <= 0.005,
         f"k film eta = 0: partner frequencies within rtol {GATE_RTOL}": max(gap0, gap1) <= GATE_RTOL,
-        "k film eta = 0: A, B, C launched": all(v > 0 for v in launches.values()),
+        "k film eta = 0: A, B launched, C only for rounds 2+": ab_launched_c_for_chains(launches, K0_STEPS),
+        "k film eta = 0: the narrow rounds on kernel F, once a step or more": (
+            launches["event_round"] >= K0_STEPS),
         f"k film eta = 0: {K0_STEPS} steps run": sim.current_timestep == K0_STEPS,
     }
     return sim, td, launches, checks
@@ -1039,27 +1197,29 @@ def grid_film(f_dom, device):
 
 def short_path(name, mat, dom, geo, btab, rtab, params, n_p, tabs, card):
     """100 steps of one configuration through init_state -> build_step ->
-    run (10 x 10, after no warm-up) with kernel A's counter zeroed just
-    before and read just after. Returns (out, n0, kernel A launches)."""
+    run (10 x 10, after no warm-up) with kernel A's and kernel F's counters
+    zeroed just before and read just after. Returns (out, n0, launches)."""
     import torch
 
-    from nanokappa_torch.ops import megastep
+    from nanokappa_torch.ops import event_round, megastep
     from nanokappa_torch.sim.state import init_state
     from nanokappa_torch.sim.step import build_step
 
     state = init_state(mat, dom, geo, params, n_p, btab, temp_dist="linear", seed=SEED)
     n0 = int(state.alive.sum())
     run = build_step(geo, tabs, btab, rtab, params, n_inner=10, n_outer=10)
-    megastep.launches = 0
+    mods = (megastep, event_round)
+    for m in mods:
+        m.launches = 0
     t0 = time.perf_counter()
     state, out = run(state)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    n = megastep.launches
+    n = {m.__name__.rsplit(".", 1)[1]: m.launches for m in mods}
     print(f"{name}: T_sv {[round(float(t), 3) for t in out.T_sv[-1][:10].cpu()]}"
           f"{' ...' if geo.n_subvols > 10 else ''}", flush=True)
     print(f"{name}: N_p {int(out.N_p[-1])} (start {n0}), lost {out.lost_split[-1].tolist()}, "
-          f"frozen {int(out.frozen[-1])}, kernel A launches {n}, "
+          f"frozen {int(out.frozen[-1])}, launches {n}, "
           f"{100 * int(out.N_p[-1]) / elapsed:.4g} updates/s on {card}", flush=True)
     return out, n0, n
 
@@ -1467,8 +1627,8 @@ def bigmesh_kernel_checks(sim, device):
 
 def driver_path(tag, make_argv, mat, card, steps):
     """One configuration through the driver entry a user runs,
-    `Simulation(read_args(argv), material=mat).run()`, with kernel A's, B's
-    and C's launch counters zeroed just before the Simulation is built and
+    `Simulation(read_args(argv), material=mat).run()`, with kernel A's, B's,
+    C's and F's launch counters zeroed just before the Simulation is built and
     read after its run, and every sample_injections call of the step logged
     (n_valid, dropped: host ints, no device read). Prints the configuration,
     T_sv, the population and losses, ms/step and updates/s over the
@@ -1481,7 +1641,7 @@ def driver_path(tag, make_argv, mat, card, steps):
 
     from nanokappa_torch.driver import Simulation
     from nanokappa_torch.io.config import read_args
-    from nanokappa_torch.ops import compact, compact_pool, megastep
+    from nanokappa_torch.ops import compact, compact_pool, event_round, megastep
     from nanokappa_torch.sim import fused
     from nanokappa_torch.sim.fused import event_window
 
@@ -1493,7 +1653,7 @@ def driver_path(tag, make_argv, mat, card, steps):
         log.append((out[1], out[3]))
         return out
 
-    mods = (megastep, compact_pool, compact)
+    mods = (megastep, compact_pool, compact, event_round)
     for m in mods:
         m.launches = 0
     t0 = time.perf_counter()
@@ -1529,7 +1689,8 @@ def driver_path(tag, make_argv, mat, card, steps):
           f"last 2 blocks) on {card}; driver wall {wall:.1f} s (setup {t_setup:.1f} s)", flush=True)
     print(f"{tag}: " + tm.report().replace("\n", f"\n{tag}: "), flush=True)
     stats = dict(n0=n0, n_alive=n_alive, lost=row["lost_split"], T=row["T"], frozen=int(row["frozen"]),
-                 events=events, ms=ms, injections=log, steps=sim.current_timestep == steps)
+                 events=events, ms=ms, injections=log, steps=sim.current_timestep == steps,
+                 narrow_f=event_round.covers(sim.geo, sim.params))
     return sim, td, launches, stats
 
 
@@ -1537,7 +1698,9 @@ def common_gates(tag, st, launches, T_lo, T_hi, stuck_gate=None):
     """The gates every new path shares: nothing dropped or defective (or
     nothing lost at all where `stuck_gate` is None), the population within
     5%, T_sv inside (T_lo, T_hi) and falling hot to cold, kernels A and C
-    launched, every step run."""
+    launched, the narrow rounds on kernel F (once a step or more) where it
+    covers the geometry and on the torch rounds (F never) elsewhere, every
+    step run."""
     import numpy as np
 
     lost, T, n0 = st["lost"], st["T"], st["n0"]
@@ -1546,6 +1709,7 @@ def common_gates(tag, st, launches, T_lo, T_hi, stuck_gate=None):
         f"{tag}: T_sv in ({T_lo:g}, {T_hi:g})": bool(((T > T_lo) & (T < T_hi)).all()),
         f"{tag}: T_sv falling hot to cold": bool((np.diff(T) < 0).all()),
         f"{tag}: A, C launched": launches["megastep"] > 0 and launches["compact"] > 0,
+        narrow_gate(tag, st["narrow_f"]): narrow_ok(launches, st["narrow_f"], NEW_STEPS),
         f"{tag}: {NEW_STEPS} steps run": st["steps"],
     }
     if stuck_gate is None:
@@ -2204,7 +2368,7 @@ def bits_equal(a, b) -> bool:
 def sharded_film_rank(comm, out_dir, mat, argv):
     """One rank of the sharded film through the driver entry,
     `Simulation(read_args(argv), material=mat, comm=comm).run()`, with
-    kernel A's, B's and C's launch counters zeroed just before the
+    kernel A's, B's, C's and F's launch counters zeroed just before the
     Simulation is built and read after its run. Writes its numbers to
     `<out_dir>/rank<r>.json`: set-up time, ms/step over the device_step time
     of the last 2 blocks, the host time of its all-reduces, the last T_sv,
@@ -2216,10 +2380,10 @@ def sharded_film_rank(comm, out_dir, mat, argv):
 
     from nanokappa_torch.driver import Simulation
     from nanokappa_torch.io.config import read_args
-    from nanokappa_torch.ops import compact, compact_pool, megastep
+    from nanokappa_torch.ops import compact, compact_pool, event_round, megastep
     from nanokappa_torch.sim.fused import step_seed
 
-    mods = (megastep, compact_pool, compact)
+    mods = (megastep, compact_pool, compact, event_round)
     for m in mods:
         m.launches = 0
     t0 = time.perf_counter()
@@ -2291,8 +2455,10 @@ def sharded_ranks(tag, backend, devices, mat, card, T_ref, n_ref):
         f"{tag}: T_sv falling hot to cold": bool((np.diff(T) < 0).all()),
         f"{tag}: within 0.5 K of the one-shard film": dT <= 0.5,
         f"{tag}: T_sv bit-identical on every rank": all(r["same_T"] for r in recs),
-        f"{tag}: A, B, C launched on every rank": all(
-            all(v > 0 for v in r["launches"].values()) for r in recs),
+        f"{tag}: A, B launched, C only for rounds 2+, on every rank": all(
+            ab_launched_c_for_chains(r["launches"], SHARD_STEPS) for r in recs),
+        f"{tag}: the narrow rounds on kernel F on every rank, once a step or more": all(
+            r["launches"]["event_round"] >= SHARD_STEPS for r in recs),
         f"{tag}: the ranks' first step seeds differ": len({r["seed0"] for r in recs}) == len(recs),
     }
     shutil.rmtree(td, ignore_errors=True)
@@ -2471,7 +2637,8 @@ def main(device=None) -> None:
 
     # ---- the main paths ---------------------------------------------------------
     checks = {}
-    out, n0, f_launch, _, _, f_T = main_path("film", mat, f_dom, f_geo, f_btab, f_rtab, f_params, f_np, tabs, card)
+    out, n0, f_launch, _, f_state, f_T = main_path("film", mat, f_dom, f_geo, f_btab, f_rtab, f_params, f_np,
+                                                    tabs, card)
     T = out.T_sv[-1].cpu().numpy()
     n_alive, lost = int(out.N_p[-1]), out.lost_split[-1].tolist()
     checks.update({
@@ -2479,8 +2646,15 @@ def main(device=None) -> None:
         "film: population within 5%": abs(n_alive - n0) <= 0.05 * n0,
         "film: T_sv in (298, 302)": bool(((T > 298.0) & (T < 302.0)).all()),
         "film: T_sv hot end > cold end": bool(T[0] > T[-1]),
-        "film: A, B, C launched": all(v > 0 for v in f_launch.values()),
+        "film: A, B launched, C only for rounds 2+": ab_launched_c_for_chains(f_launch, 500),
+        "film: the narrow rounds on kernel F, once a step or more": f_launch["event_round"] >= 500,
     })
+    # kernel F against the torch rounds on the film's own exports: 100 more
+    # steps from the main path's state, every narrow-machinery call replayed
+    recs["F_film"], recs["F_film_2"] = check_event_round(
+        "film", capture_narrow(f_geo, tabs, f_btab, f_rtab, f_params, f_state))
+    print_event_round(recs["F_film"], recs["F_film_2"], card)
+    del f_state
     # ---- the same film on the v1 step: the card's cross-check of the steps ---
     out, n0, v1_d, v1_dT, v1_layout = v1_film(mat, f_dom, f_geo, f_btab, f_rtab, f_params, f_np, tabs, f_T[100])
     T = out.T_sv[-1].cpu().numpy()
@@ -2507,7 +2681,8 @@ def main(device=None) -> None:
         # every specular decision is flagged; with no specular partner on
         # these walls there is none to flag
         "wire: flagged specular exports == 0 (coverage 0)": events[1] == 0 if w_cov == 0 else events[1] > 0,
-        "wire: A, B, C launched": all(v > 0 for v in w_launch.values()),
+        "wire: A, B, C launched": abc_launched(w_launch),
+        "wire: the narrow rounds on the torch rounds (kernel F not launched)": w_launch["event_round"] == 0,
     })
     del out
     torch.cuda.empty_cache()
@@ -2521,7 +2696,8 @@ def main(device=None) -> None:
         "film linear: population within 5%": abs(int(out.N_p[-1]) - n0) <= 0.05 * n0,
         "film linear: T_sv in (298, 302), hot end > cold end":
         bool(((T > 298.0) & (T < 302.0)).all() and T[0] > T[-1]),
-        "film linear: A launched": fl_launch > 0,
+        "film linear: A launched": fl_launch["megastep"] > 0,
+        "film linear: the narrow rounds on kernel F, once a step or more": fl_launch["event_round"] >= 100,
     })
     out, n0, g_launch = short_path("film centre 256", mat, g_dom, g_geo, f_btab, f_rtab, f_params,
                                    f_np, tabs, card)
@@ -2530,7 +2706,9 @@ def main(device=None) -> None:
         "film centre 256: lost == 0": int(out.lost[-1]) == 0,
         "film centre 256: population within 5%": abs(int(out.N_p[-1]) - n0) <= 0.05 * n0,
         "film centre 256: T_sv in (298, 302)": bool(((T > 298.0) & (T < 302.0)).all()),
-        "film centre 256: A launched": g_launch > 0,
+        "film centre 256: A launched": g_launch["megastep"] > 0,
+        "film centre 256: the narrow rounds on the torch rounds (kernel F not launched)":
+        g_launch["event_round"] == 0,
     })
     del out
     torch.cuda.empty_cache()
@@ -2576,8 +2754,14 @@ def main(device=None) -> None:
         "k film: T_sv in (298, 302)": bool(((T > 298.0) & (T < 302.0)).all()),
         "k film: T_sv falling hot to cold": bool((np.diff(T) < 0).all()),
         "k film: degenerate-branch swaps > 0": events[2] > 0,
-        "k film: A, B, C launched": all(v > 0 for v in k_launch.values()),
+        "k film: A, B, C launched": abc_launched(k_launch),
+        "k film: the narrow rounds on kernel F, once a step or more": k_launch["event_round"] >= 500,
     })
+    # kernel F on the k film's exports: the plain layout's deeper chains
+    # (rounds 2+ at EVT_CAP // 8) and the degenerate-branch swap
+    recs["F_kfilm"], recs["F_kfilm_2"] = check_event_round(
+        "k film", capture_narrow(k_geo, tabs, k_btab, k_rtab, k_params, k_state))
+    print_event_round(recs["F_kfilm"], recs["F_kfilm_2"], card)
     k_cfg = mega_config(k_geo, tabs, k_btab, k_params, event_window(k_geo, tabs, k_btab, k_params))
     recs["kfilm_linear"] = check_megastep("drift_megastep[k film linear]", with_fresh(k_state.pool, device),
                                           k_state.T_sv, k_cfg, 4, 0)
@@ -2686,8 +2870,8 @@ def main(device=None) -> None:
     recs["survivors"]["launches"] = f_launch["compact"]
     recs["lattice"]["launches"] = w_launch["compact"]
     recs["castoff"]["launches"] = b_launch["megastep"]
-    recs["film_linear"]["launches"] = fl_launch
-    recs["film_centre256"]["launches"] = g_launch
+    recs["film_linear"]["launches"] = fl_launch["megastep"]
+    recs["film_centre256"]["launches"] = g_launch["megastep"]
     recs["kfilm_linear"]["launches"] = k_launch["megastep"]
     recs["kfilm0"]["launches"] = k0_launch["megastep"]
     recs["pool_full"]["launches"] = k0_launch["compact_pool"]
@@ -2701,6 +2885,10 @@ def main(device=None) -> None:
     recs["corrugated"]["launches"] = cw_launch["megastep"]
     recs["wire12"]["launches"] = sw_launch[0.0]["megastep"]
     recs["membrane"]["launches"] = mb_launch["megastep"]
+    for k in ("F_film", "F_film_2"):
+        recs[k]["launches"] = f_launch["event_round"]
+    for k in ("F_kfilm", "F_kfilm_2"):
+        recs[k]["launches"] = k_launch["event_round"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)

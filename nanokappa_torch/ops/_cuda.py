@@ -42,6 +42,7 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "nk_compact_indices": [_P, _L, _I, _P, _P, _P],
     "nk_compact_pool": [_P, _P, _I, _I, _P, _P, _P],
+    "nk_event_round": [_P] * 14,
     "nk_megastep": [_P] * 12,
     "nk_raycast_large": [_P, _P, _L, _L, _L, _L, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     "nk_scatter_rows": [_P, _P, _P, _I, _I, _I, _P],

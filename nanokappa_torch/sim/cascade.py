@@ -20,7 +20,10 @@ on facet `coll_facet`:
                equal-frequency partner branch with probability 1/2
                (classes/Population.py:1017-1040).
 Round 1 runs at buffer width; the few survivors are compacted (kernel C,
-ops/compact.py) into a narrow buffer for the remaining rounds. With kernel
+ops/compact.py) into a narrow buffer for the remaining rounds. Given kernel
+F's tables (the v2 step on a box with slices), a CUDA buffer's rounds run
+there instead, one launch a round (ops/event_round.py); these torch rounds
+are its plain twin, and what every other configuration runs. With kernel
 A's cast off (meshes over 128 triangles) every boundary hit arrives here,
 absorbing and periodic ones included, and each round's re-cast goes
 through ops/raycast.py to kernel E.
@@ -231,14 +234,21 @@ def run_event_buffer(
     R8: int,
     evt2_cap: int | None = None,  # width of the rounds-2+ buffer; None ->
     #   E // 4 (the mirror path's deep-chain sizing)
+    kernel=None,  # kernel F's tables (ops/event_round.py round_tables): a
+    #   CUDA buffer's rounds run there, one launch a round
 ):
     """Lanes enter sitting on facet C_CF with C_REM > 0. Returns
     (rows_out (16, E) with C_ALIVE updated, ledger (R8,5), lost_stuck
     (quarantined after k_max rounds), lost_defective (no boundary found),
     frozen (narrow-buffer overflow), swaps (the k model's degenerate-branch
-    swaps)) — counts as device scalars."""
+    swaps)) — counts as device scalars. `rows` is left as it was."""
     E = rows.shape[1]
     dev = rows.device
+    EVT2 = pad8(max(evt2_cap if evt2_cap is not None else E // 4, 512))
+    if kernel is not None and dev.type == "cuda":
+        from nanokappa_torch.ops.event_round import event_rounds
+
+        return event_rounds(kernel, rows, vbuf, gen, T_sv, R8, EVT2)
     buf = _Buf(
         pos=rows[C_POS].T,
         mode=as_i32(rows[C_MODE]),
@@ -269,7 +279,6 @@ def run_event_buffer(
     buf1 = body(buf, forced=vbuf & (rows[C_TCOLL] < -1.5))
 
     # ---- rounds 2+ on a compacted narrow buffer ------------------------------
-    EVT2 = pad8(max(evt2_cap if evt2_cap is not None else E // 4, 512))
     surv = buf1.pending()
     sidx2, n2 = compact_indices(surv, EVT2)
     frozen2 = surv.sum(dtype=torch.int32) - n2  # overflow: stay alive, frozen

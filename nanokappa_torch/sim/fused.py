@@ -37,7 +37,9 @@ Pipeline per step:
      in-kernel absorb/periodic/specular (slim) or diffuse (plain) rounds,
      export of the still-pending rows, subvolume sums of the lanes that
      stay,
-  3. the narrow event machinery (sim/cascade.py) on the exported rows,
+  3. the narrow event machinery (sim/cascade.py) on the exported rows: on
+     a box with slices kernel F (ops/event_round.py), one launch a round,
+     elsewhere the torch rounds,
   4. its rows are binned and appended at the tail WHOLE (the EVT_CAP window
      advances the tail even where lanes are dead — the runner's compaction
      cadence in sim/step.py is sized for that),
@@ -67,6 +69,7 @@ from nanokappa_torch.sim.binning import (
 from nanokappa_torch.sim.boundary_tables import (
     K_MODELS, BoundaryTables, combined_mirror_rows, slim_mirror_axis,
 )
+from nanokappa_torch.ops import event_round
 from nanokappa_torch.ops.megastep import MAX_CENTERS, MAX_SLICES
 from nanokappa_torch.ops.raycast import raycast
 from nanokappa_torch.sim.cascade import run_event_buffer, v1_event_cap
@@ -457,6 +460,9 @@ def make_step_v2(
     # in-kernel diffuse the buffer is mostly specular lanes that can chain
     # (nanokappa_tpu/sim/fused.py:971-973)
     evt2_cap = None if mirror else (EVT_CAP // 8 if cfg.dkern else EVT_CAP // 16)
+    # the narrow rounds as kernel F (one launch a round) where it covers the
+    # geometry: the box's slab cast on slices; the torch round elsewhere
+    narrow = event_round.round_tables(geo, mat, btab, params) if event_round.covers(geo, params) else None
     if mirror:
         # the combined wall table [p, corr, omega, vx, vy, vz, ..] of every mode
         cmr = np.ascontiguousarray(combined_mirror_rows(btab, mat))
@@ -537,7 +543,7 @@ def make_step_v2(
         vbuf = lane_e < counts[2]
         rows_out, mledger, lost_stuck, lost_def, frozen2, swaps = run_event_buffer(
             rows_x[:16], vbuf, geo, mat, btab, params, state.gen, state.T_sv,
-            R8, evt2_cap=evt2_cap,
+            R8, evt2_cap=evt2_cap, kernel=narrow,
         )
 
         # 4. bin the event rows (their end-of-step state); with the kernel's

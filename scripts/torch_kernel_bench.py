@@ -1,7 +1,7 @@
-"""Kernels A, B, C, D and E timed on the card at the main paths' shapes,
+"""Kernels A, B, C, D, E and F timed on the card at the main paths' shapes,
 for one checkout of the port: the comparison of two versions in one call.
 
-    python scripts/torch_kernel_bench.py [--root DIR] [--label NAME] [--only a,b,c,d,e]
+    python scripts/torch_kernel_bench.py [--root DIR] [--label NAME] [--only a,b,c,d,e,f]
 
 Imports `nanokappa_torch` from DIR (default: this checkout; a `git archive`
 of another commit unpacked into a git-ignored directory gives the other
@@ -34,6 +34,10 @@ version) and this checkout's chip_smoke.py helpers, builds the kernels
     L2-warm (one target) and L2-cold (chip_smoke.device_timed_cold), with
     its sector floor (chip_smoke.sector_floor) beside its byte bound;
   * kernel B on a 16-row pool of 1,277,952 lanes, 78% alive;
+  * kernel F (the narrow rounds) on the film's 2,048-lane export buffer
+    with one live lane a facet (round 1) and its 512-lane rounds-2+ buffer
+    with two survivors, against the torch rounds (`f`; a checkout without
+    ops/event_round.py times the torch rounds alone);
 
 each kernel timed by its device time per call (chip_smoke.device_timed: the
 calls enqueued behind a spin kernel, so their kernels run back to back
@@ -248,7 +252,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--label", default="")
-    ap.add_argument("--only", default="a,b,c,d,e", help="kernels to time, comma-separated")
+    ap.add_argument("--only", default="a,b,c,d,e,f", help="kernels to time, comma-separated")
     args = ap.parse_args()
     only = set(args.only.lower().split(","))
     sys.path.insert(0, os.path.abspath(args.root))
@@ -276,6 +280,8 @@ def main() -> None:
         bench_pool(cs, device, rows, splits)
     if "a" in only:
         bench_kernel_a(cs, device, rows, splits)
+    if "f" in only:
+        bench_event_round(cs, device, rows, splits)
     if "e" in only:
         from nanokappa_torch.geometry.device import build_device_geometry
         from nanokappa_torch.geometry.domain import build_domain
@@ -365,5 +371,81 @@ def bench_kernel_a(cs, device, rows, splits):
     torch.cuda.empty_cache()
 
 
+
+def bench_event_round(cs, device, rows, splits):
+    """Kernel F on the film (31^3 material): its device time a launch at
+    2,048 lanes (round 1) and at 512 (a round 2+ on two survivors), the
+    whole narrow machinery's calls back to back on kernel F and on the
+    torch rounds (held bit for bit alike), and the bound."""
+    import importlib.util
+
+    import torch
+
+    from nanokappa_torch.material import synthetic_material
+    from nanokappa_torch.sim.cascade import run_event_buffer
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_parity import narrow_rows
+
+    mat = synthetic_material(mesh=(cs.MESH, cs.MESH, cs.MESH))
+    tabs = mat.device_tables(device)
+    dom, geo, btab = cs.build_ctx(mat, cs.FILM, device)
+    _, _, params = cs.run_params(mat, dom, cs.PARTICLES, "pooled", device)
+    case = argparse.Namespace(geo=geo, btab=btab, tabs=tabs)
+    E, E2 = 2048, 512
+    x, vbuf = narrow_rows(case, E=E, n_live=geo.n_facets, seed=0, rem=(0.01, 0.05))
+    T_sv = torch.linspace(302.0, 298.0, geo.n_subvols, device=device)
+    args = (geo, tabs, btab, params)
+
+    def plain(x):
+        return run_event_buffer(x, vbuf, *args, gen, T_sv, 8)[0]
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    row = dict(name="event_rounds[torch rounds]", event_ms=calls_ms(cs, plain, x), lanes=E,
+               live=geo.n_facets)
+    print("bench " + json.dumps(row), flush=True)
+    rows.append(row)
+    splits.append((row, lambda: plain(x)))
+    if importlib.util.find_spec("nanokappa_torch.ops.event_round") is None:
+        return
+    from nanokappa_torch.ops import event_round
+    from nanokappa_torch.ops.compact import compact_indices
+
+    ft = event_round.round_tables(geo, tabs, btab, params)
+
+    def kernel(x):
+        return run_event_buffer(x, vbuf, *args, gen, T_sv, 8, kernel=ft)[0]
+
+    for g in (1, 2):
+        gen = torch.Generator(device=device).manual_seed(g)
+        a = kernel(x)
+        gen = torch.Generator(device=device).manual_seed(g)
+        b = plain(x)
+        torch.cuda.synchronize()
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError("kernel F differs from the torch rounds")
+    call = event_round.RoundCall(ft, x, vbuf, T_sv, 8, E2)
+    u1 = torch.rand((E, 4), device=device)
+    u2 = torch.rand((E2, 4), device=device)
+    call.launch(E, True, u4=u1)
+    two = torch.zeros(E, dtype=torch.bool, device=device)
+    two[:2] = True
+    idx2, _ = compact_indices(two, E2)
+    bound = cs.bound(2 * 16 * 4 * E, 0)[0]
+    for name, e, fn in (("round 1", E, lambda: call.launch(E, True, u4=u1)),
+                        ("round 2+", E2, lambda: call.launch(E2, False, idx=idx2, u4=u2))):
+        row = dict(name=f"event_round[{name}]", ms=cs.device_timed(fn), lanes=e,
+                   bound_ms=cs.bound(2 * 16 * 4 * e, 0)[0])
+        print("bench " + json.dumps(row), flush=True)
+        rows.append(row)
+        splits.append((row, fn))
+    row = dict(name="event_rounds[kernel F]", event_ms=calls_ms(cs, kernel, x), lanes=E,
+               live=geo.n_facets, bound_ms=bound)
+    print("bench " + json.dumps(row), flush=True)
+    rows.append(row)
+    splits.append((row, lambda: kernel(x)))
+
+
 if __name__ == "__main__":
     main()
+

@@ -1016,3 +1016,145 @@ def test_cuda_compact_new_reservoir_widths(cuda, name):
     assert compact.launches == before + 1
     ref, rn = _compact_ref(m, cap)
     assert torch.equal(idx.cpu(), ref) and int(nv) == int(rn)
+
+
+# the narrow rounds' crafted buffers (tests/torch_parity.py narrow_case /
+# narrow_rows): (case keywords, rows keywords); each exercises a part of the
+# round that the others may miss
+NARROW = {
+    # reservoirs, periodic pair, eta = 0 mirror rows and no-partner modes
+    # (diffuse), a tenth of the rough lanes flagged by kernel A
+    "film": (dict(), dict(n_live=300)),
+    # eta = 2 A walls (the Bernoulli decides), linear temperatures, a dt whose
+    # reciprocal is inexact, and lanes leaving their wall, with the box's two
+    # rough rows swapped for the back rows
+    "rough_linear_back": (dict(domain_kw=ROUGH_BOX, temp_interp="linear", dt=0.7),
+                          dict(n_live=400, back=0.3, seed=1)),
+    # the k model: specular lanes swap to their equal-frequency partner
+    "kmodel": (dict(scat_model="k"), dict(n_live=600, seed=2)),
+    # long flights: chains through rounds 2+, two lanes stuck at k_max
+    "chains": (dict(dt=150.0), dict(n_live=400, seed=3)),
+    # every lane live: more survivors than the 512-lane buffer, k_max = 3
+    "stuck_overflow": (dict(dt=400.0, k_max=3), dict(n_live=2048, seed=4)),
+    # no round 2+: round 1's survivors are stuck
+    "k_max1": (dict(dt=150.0, k_max=1), dict(n_live=300, seed=5)),
+}
+
+
+def _narrow_case(cuda, name):
+    import dataclasses
+
+    from torch_parity import narrow_case, narrow_rows
+
+    case_kw, rows_kw = NARROW[name]
+    case = narrow_case(cuda, **case_kw)
+    if rows_kw.get("back"):
+        btab = dataclasses.replace(case.btab, row_back=case.btab.row_of_rough.flip(0).contiguous())
+        object.__setattr__(btab, "_host", case.btab._host)
+        case.btab = btab
+    rows, vbuf = narrow_rows(case, **rows_kw)
+    return case, rows, vbuf
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(NARROW))
+def test_cuda_event_round_matches_plain(cuda, name, monkeypatch):
+    """Kernel F against the torch rounds on one crafted 2,048-lane buffer
+    and one generator seed: every lane's 16 rows bit for bit, the counts
+    exact, the ledger to float32 rounding, the generator's state equal
+    after the call, the input rows untouched, one launch a round (and one
+    more where the rounds reach k_max: the quarantine)."""
+    from nanokappa_torch.ops import event_round
+    from nanokappa_torch.sim import cascade
+
+    case, rows, vbuf = _narrow_case(cuda, name)
+    tabs = event_round.round_tables(case.geo, case.tabs, case.btab, case.params)
+    rounds = [0]
+    plain_round = cascade._event_round
+
+    def counted(*a, **k):
+        rounds[0] += 1
+        return plain_round(*a, **k)
+
+    args = (case.geo, case.tabs, case.btab, case.params)
+    rows0 = rows.clone()
+    gk = torch.Generator(device=cuda).manual_seed(11)
+    gp = torch.Generator(device=cuda).manual_seed(11)
+    before = event_round.launches
+    ok, lk, *ck = cascade.run_event_buffer(rows, vbuf, *args, gk, case.T_sv, 8, kernel=tabs)
+    launched = event_round.launches - before
+    monkeypatch.setattr(cascade, "_event_round", counted)
+    op, lp, *cp = cascade.run_event_buffer(rows, vbuf, *args, gp, case.T_sv, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(rows), _bits(rows0))
+    assert torch.equal(_bits(ok), _bits(op))
+    assert [int(x) for x in ck] == [int(x) for x in cp]
+    assert [x.dtype for x in ck] == [x.dtype for x in cp]
+    assert torch.equal(gk.get_state(), gp.get_state())
+    k_max = case.params.k_max
+    assert launched == rounds[0] + int(k_max <= 1 or rounds[0] >= k_max)
+    a, b = lk.double().cpu(), lp.double().cpu()
+    scale = b.abs().sum(0, keepdim=True)
+    assert bool(((a - b).abs() <= 1e-6 * b.abs() + 1e-6 * scale).all()), (a, b)
+    stuck, lost, frozen, swaps = (int(x) for x in cp)
+    want = {"chains": stuck > 0 and rounds[0] > 2, "stuck_overflow": stuck > 0 and frozen > 0,
+            "kmodel": swaps > 0, "k_max1": stuck > 0}
+    assert want.get(name, True), (name, cp, rounds)
+
+
+@pytest.mark.gpu
+def test_cuda_event_round_film_steps_match_plain(cuda, monkeypatch):
+    """The film's v2 step with its narrow rounds on kernel F and on the
+    torch rounds, from one state, three single steps with long flights (so
+    kernel A exports): the pool bit for bit after each, the same counts."""
+    import dataclasses
+
+    from nanokappa_torch.geometry.device import build_device_geometry
+    from nanokappa_torch.geometry.domain import build_domain
+    from nanokappa_torch.material import synthetic_material
+    from nanokappa_torch.ops import event_round
+    from nanokappa_torch.ops.compact_pool import compact_pool_plain
+    from nanokappa_torch.sim import fused
+    from nanokappa_torch.sim.boundary_tables import build_boundary_tables
+    from nanokappa_torch.sim.reservoir import build_reservoir_tables
+    from nanokappa_torch.sim.state import SimParams, init_state, particle_count
+    from torch_parity import FILM
+
+    mat = synthetic_material(mesh=(4, 4, 4))
+    dom = build_domain(**FILM)
+    n_p, rho = particle_count(("total", 3000), mat, dom)
+    params = SimParams(
+        dt=40.0, n_cap=16384, inj_cap=512, temp_interp="nearest", res_gen="pooled",
+        particle_density=rho, n_active_modes=mat.n_active_modes, t_reference=300.0,
+    )
+    geo = build_device_geometry(dom, cuda)
+    btab = build_boundary_tables(mat, dom, device=cuda)
+    rtab = build_reservoir_tables(mat, dom, params.dt, rho, device=cuda)
+    tabs = mat.device_tables(cuda)
+    state = init_state(mat, dom, geo, params, n_p, btab, temp_dist="linear", seed=3)
+    state.pool, tail = compact_pool_plain(state.pool)  # the runner's entry compaction
+    state.tail = int(tail)
+    step_k = fused.make_step_v2(geo, tabs, btab, rtab, params)
+    monkeypatch.setattr(event_round, "covers", lambda geo, params: False)
+    step_p = fused.make_step_v2(geo, tabs, btab, rtab, params)
+
+    def copy(s):
+        g = torch.Generator(device=cuda)
+        g.set_state(s.gen.get_state())
+        kw = {f.name: getattr(s, f.name) for f in dataclasses.fields(s)}
+        kw = {k: (v.clone() if isinstance(v, torch.Tensor) else v) for k, v in kw.items()}
+        return dataclasses.replace(s, **{**kw, "res_counter": s.res_counter.copy(), "gen": g})
+
+    exported = 0
+    for _ in range(3):
+        sk, sp = copy(state), copy(state)
+        before = event_round.launches
+        step_k(sk)
+        assert event_round.launches > before
+        step_p(sp)
+        assert torch.equal(_bits(sk.pool), _bits(sp.pool)) and sk.tail == sp.tail
+        for f in ("n_leaving", "lost", "frozen", "kernel_events"):
+            assert torch.equal(getattr(sk, f), getattr(sp, f)), f
+        exported += int(sk.kernel_events[3] - state.kernel_events[3])
+        state = sk
+    assert exported > 0

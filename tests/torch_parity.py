@@ -663,3 +663,87 @@ def aim_at_rough_facets(pool, dom, geo, btab, per_facet: int = 48, seed: int = 1
     pool[C_ALIVE, :N] = 1.0
     rows = row_of[lanes_f]
     return N, modes, rows, corr[rows, modes] >= 0
+
+
+def narrow_case(device, domain_kw=FILM, scat_model="velocity", temp_interp="nearest",
+                dt=1.0, k_max=8, mesh=(4, 4, 4)):
+    """A box configuration for the narrow rounds (sim/cascade.py
+    run_event_buffer) in the port alone, on `device`: its geometry, tables,
+    parameters and a slice temperature profile from 302 to 298 K."""
+    from nanokappa_torch.geometry.device import build_device_geometry
+    from nanokappa_torch.geometry.domain import build_domain
+    from nanokappa_torch.material import synthetic_material
+    from nanokappa_torch.sim.boundary_tables import build_boundary_tables
+    from nanokappa_torch.sim.state import SimParams, particle_count
+
+    mat = synthetic_material(mesh=mesh)
+    dom = build_domain(**domain_kw)
+    n_p, rho = particle_count(("total", 3000), mat, dom)
+    params = SimParams(
+        dt=dt, n_cap=4096, inj_cap=512, temp_interp=temp_interp, res_gen="pooled",
+        particle_density=rho, n_active_modes=mat.n_active_modes, t_reference=300.0,
+        scat_model=scat_model, k_max=k_max,
+    )
+    geo = build_device_geometry(dom, device)
+    btab = build_boundary_tables(mat, dom, scat_model, device=device)
+    T_sv = torch.linspace(302.0, 298.0, geo.n_subvols, device=device)
+    return SimpleNamespace(mat=mat, dom=dom, geo=geo, btab=btab, tabs=mat.device_tables(device),
+                           params=params, T_sv=T_sv)
+
+
+def narrow_rows(case, E=2048, n_live=300, seed=0, flagged=0.1, back=0.0, partner=0.7,
+                rem=(0.01, 1.0)):
+    """(rows (16, E), vbuf (E,)) as kernel A exports them to the narrow
+    rounds: n_live lanes, each sitting on a facet of the box (cycling
+    through every facet: reservoirs, periodic pair, rough walls) and
+    arriving at it (v.n > 0), interior on the other axes, `rem` of the step
+    left (uniform), zero rows past n_live. At a rough wall a share
+    `partner` of the lanes takes a mode with a specular partner at the
+    wall's row, a share `back` leaves the wall (v.n < 0: the back row),
+    and a share `flagged` carries kernel A's won Bernoulli (C_TCOLL -2)."""
+    from nanokappa_torch.geometry.domain import BC
+    from nanokappa_torch.sim.state import (
+        C_ALIVE, C_CF, C_DEV, C_MODE, C_OMEGA, C_ONF, C_REM, C_SV, C_TAU, C_TCOLL,
+    )
+
+    geo, btab = case.geo, case.btab
+    v = np_(case.tabs.velocity)
+    om = np_(case.tabs.omega)
+    normals = np_(geo.facet_normal)
+    axis, plane = np_(geo.box_axis), np_(geo.box_plane)
+    lo, hi = np_(geo.bounds)
+    bc = np_(geo.facet_bc)
+    corr = btab._host["corr"]
+    row_of = np_(btab.row_of_rough)
+    frough = np_(geo.facet_rough)
+    rng = np.random.default_rng(seed)
+    rows = np.zeros((16, E), np.float32)
+    bits = rows.view(np.int32)
+    F = len(bc)
+    for i in range(n_live):
+        f = i % F
+        rough = bc[f] == int(BC.ROUGH)
+        s = -1.0 if rough and rng.random() < back else 1.0
+        ok = (s * (v @ normals[f]) > 1e-3) & (om > 0)
+        if rough and s > 0:
+            has = corr[row_of[frough[f]]] >= 0
+            want = ok & (has if rng.random() < partner else ~has)
+            ok = want if want.any() else ok
+        m = rng.choice(np.nonzero(ok)[0])
+        p = lo + (0.05 + 0.9 * rng.random(3)) * (hi - lo)
+        p[axis[f]] = plane[f]
+        rows[0:3, i] = p
+        rows[3:6, i] = v[m]
+        rows[C_OMEGA, i] = om[m]
+        rows[C_TAU, i] = 5.0 + rng.random()
+        rows[C_DEV, i] = rng.normal(0, 0.02)
+        bits[C_MODE, i] = m
+        bits[C_CF, i] = f
+        rows[C_TCOLL, i] = -2.0 if rough and rng.random() < flagged else 0.0
+        bits[C_ONF, i] = -1
+        rows[C_REM, i] = rng.uniform(*rem)
+        rows[C_ALIVE, i] = 0.0
+        bits[C_SV, i] = rng.integers(0, geo.n_subvols)
+    d = geo.facet_bc.device
+    vbuf = torch.arange(E, device=d) < n_live
+    return torch.as_tensor(rows, device=d), vbuf
