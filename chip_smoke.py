@@ -971,7 +971,6 @@ def plate_main(mat, card, device):
     from nanokappa_torch.geometry import stl
     from nanokappa_torch.io.config import read_args
     from nanokappa_torch.ops import compact, compact_pool, megastep
-    from nanokappa_torch.sim.fused import event_window
     from nanokappa_torch.sim.state import C_ALIVE
 
     td = tempfile.mkdtemp(prefix="chip_smoke_plate_")
@@ -995,7 +994,7 @@ def plate_main(mat, card, device):
     lost, T = row["lost_split"], row["T"]
     steps_t = tm.calls["device_step"][-2:]
     ups = n_alive * 200 / sum(steps_t)
-    evt = event_window(sim.geo, sim.mtab, sim.btab, sim.params)
+    evt = sim.route.evt_cap
     pool = sim.state.pool
     alive = pool[C_ALIVE] > 0.5
     x, y = pool[0][alive], pool[1][alive]
@@ -1084,7 +1083,6 @@ def kfilm0_main(mat, card, device):
     from nanokappa_torch.driver import Simulation
     from nanokappa_torch.io.config import read_args
     from nanokappa_torch.ops import compact, compact_pool, event_round, megastep
-    from nanokappa_torch.sim.fused import event_window
 
     mods = (megastep, compact_pool, compact, event_round)
     for m in mods:
@@ -1107,7 +1105,7 @@ def kfilm0_main(mat, card, device):
     lost, T = row["lost_split"], row["T"]
     steps_t = tm.calls["device_step"][-3:]
     ups = n_alive * 300 / sum(steps_t)
-    evt = event_window(sim.geo, sim.mtab, sim.btab, sim.params)
+    evt = sim.route.evt_cap
     events = sim.state.kernel_events.tolist()
     share = took0 / max(1, part0)
     print(f"k film eta = 0: layout {sim.state.layout}, {n0} particles, pool {sim.params.n_cap}, "
@@ -1246,7 +1244,6 @@ def bigmesh_main(mat, card, device):
     from nanokappa_torch.driver import Simulation
     from nanokappa_torch.io.config import read_args
     from nanokappa_torch.ops import compact, compact_pool, megastep, raycast_large
-    from nanokappa_torch.sim.fused import event_window
 
     mods = (megastep, compact_pool, compact, raycast_large)
     for m in mods:
@@ -1268,7 +1265,7 @@ def bigmesh_main(mat, card, device):
     lost, T = row["lost_split"], row["T"]
     steps_t = tm.calls["device_step"][-3:]
     ups = n_alive * 300 / sum(steps_t)
-    evt = event_window(sim.geo, sim.mtab, sim.btab, sim.params)
+    evt = sim.route.evt_cap
     cov = float((sim.btab._host["corr"] >= 0).mean())
     print(f"bigmesh: {sim.geo.tri_origin.shape[0]} triangles, {sim.geo.n_facets} facets, "
           f"{sim.btab.n_rows} boundary-table rows (built in "
@@ -1357,7 +1354,6 @@ def star_main(mat, card, device):
     from nanokappa_torch.driver import Simulation
     from nanokappa_torch.io.config import read_args
     from nanokappa_torch.ops import compact, compact_pool, megastep, scatter_rows
-    from nanokappa_torch.sim.fused import event_window
 
     mods = (megastep, compact_pool, compact, scatter_rows)
     for m in mods:
@@ -1377,7 +1373,7 @@ def star_main(mat, card, device):
     lost, T = row["lost_split"], row["T"]
     steps_t = tm.calls["device_step"][-3:]
     ups = n_alive * 300 / sum(steps_t)
-    evt = event_window(sim.geo, sim.mtab, sim.btab, sim.params)
+    evt = sim.route.evt_cap
     dom = sim.domain
     res_c = dom.mesh.facet_centroids[dom.res_facets]
     hot, cold = res_c[np.argmax(dom.res_values)], res_c[np.argmin(dom.res_values)]
@@ -1387,7 +1383,7 @@ def star_main(mat, card, device):
     stuck_rate = lost[1] / (n0 * STAR_STEPS)
     print(f"star: {sim.geo.tri_origin.shape[0]} triangles, {sim.geo.n_facets} facets, "
           f"{sim.geo.n_subvols} {sim.geo.subvol_type} cells, temp_interp {sim.params.temp_interp}, "
-          f"step v1 ({sim.v1_reason}), layout {sim.state.layout}, {n0} particles, pool "
+          f"step v1 ({sim.route.v1_reason}), layout {sim.state.layout}, {n0} particles, pool "
           f"{sim.params.n_cap}, inj_cap {sim.params.inj_cap}, c_max {sim.params.c_max}, evt_cap {evt} "
           f"(regrows {sim.evt_regrows})", flush=True)
     print(f"star: centres {[[round(float(x), 1) for x in ci] for ci in c]}", flush=True)
@@ -1410,7 +1406,7 @@ def star_main(mat, card, device):
     n_cols = {len(line.split()) for line in lines[1:]}
     R, SV = sim.geo.n_reservoirs, sim.geo.n_subvols
     checks = {
-        "star: the v1 step, for radial temperatures": sim.v1_reason == STAR_REASON
+        "star: the v1 step, for radial temperatures": sim.route.v1_reason == STAR_REASON
         and sim.state.layout == "plain",
         "star: nothing dropped or defective": lost[0] == 0 and lost[2] == 0,
         "star: k_max-stuck <= 1e-5 per particle-step": stuck_rate <= 1e-5,
@@ -1574,7 +1570,6 @@ def bigmesh_kernel_checks(sim, device):
     from nanokappa_torch.ops.megastep import drift_megastep, mega_config
     from nanokappa_torch.ops.raycast import raycast
     from nanokappa_torch.sim.cascade import pad8
-    from nanokappa_torch.sim.fused import event_window
     from nanokappa_torch.sim.state import C_ALIVE, C_CF, C_DEV, C_ONF, C_TCOLL, as_f32
 
     geo, pool = sim.geo, sim.state.pool
@@ -1592,7 +1587,7 @@ def bigmesh_kernel_checks(sim, device):
     pos[aim, 2] = verts[:, 2]
     vel[aim] = (verts - pos[aim]) / 5.0
     ex[aim] = -1
-    evt = event_window(geo, sim.mtab, sim.btab, sim.params)
+    evt = sim.route.evt_cap
     recs = {
         "E_pool": check_raycast_large("raycast_large[pool]", geo, pos, vel, ex),
         "E_inj": check_raycast_large("raycast_large[injections]", geo, pos[: sim.params.inj_cap],
@@ -1643,7 +1638,6 @@ def driver_path(tag, make_argv, mat, card, steps):
     from nanokappa_torch.io.config import read_args
     from nanokappa_torch.ops import compact, compact_pool, event_round, megastep
     from nanokappa_torch.sim import fused
-    from nanokappa_torch.sim.fused import event_window
 
     log = []
     sample = fused.sample_injections
@@ -1674,7 +1668,7 @@ def driver_path(tag, make_argv, mat, card, steps):
     n0, n_alive = sim.n_p_target, int(row["N_p"])
     steps_t = tm.calls["device_step"][-2:]
     ms = sum(steps_t) / 200 * 1e3
-    evt = event_window(sim.geo, sim.mtab, sim.btab, sim.params)
+    evt = sim.route.evt_cap
     events = sim.state.kernel_events.tolist()
     print(f"{tag}: {sim.geo.n_facets} facets, {sim.geo.n_subvols} {sim.geo.subvol_type} subvolumes, "
           f"layout {sim.state.layout}, reservoir_gen {sim.params.res_gen}, scattering "
@@ -1906,7 +1900,6 @@ def corrugated_main(mat, card, device):
     import torch
 
     from nanokappa_torch.ops.megastep import mega_config
-    from nanokappa_torch.sim.fused import event_window
     from nanokappa_torch.sim.state import C_ALIVE, C_CF, STALE
 
     tag = "corrugated wire"
@@ -1914,7 +1907,7 @@ def corrugated_main(mat, card, device):
         tag, lambda d: example_argv(CORR_FILE, d, device, NEW_STEPS), mat, card, NEW_STEPS,
     )
     cfg = mega_config(sim.geo, sim.mtab, sim.btab, sim.params,
-                      event_window(sim.geo, sim.mtab, sim.btab, sim.params))
+                      sim.route.evt_cap)
     corr = sim.btab._host["corr"]
     cov = [round(float((corr[r] >= 0).mean()), 3) for r in range(corr.shape[0])]
     print(f"{tag}: {sim.geo.tri_origin.shape[0]} triangles, btab.n_rows {sim.btab.n_rows}, partner "
@@ -1951,7 +1944,7 @@ def sweep_main(mat, card, device):
     import torch
 
     from nanokappa_torch.ops.megastep import mega_config
-    from nanokappa_torch.sim.fused import dkern_facet_tables, event_window, mirror_eligible
+    from nanokappa_torch.sim.fused import dkern_facet_tables, mirror_eligible
     from nanokappa_torch.sim.state import C_ALIVE, C_CF, STALE
 
     t0 = time.perf_counter()
@@ -1988,7 +1981,7 @@ def sweep_main(mat, card, device):
         checks[f"{tag}: in-kernel diffuse re-emissions > 0"] = st["events"][0] > 0
         if eta == 0.0:
             cfg = mega_config(sim.geo, sim.mtab, sim.btab, sim.params,
-                              event_window(sim.geo, sim.mtab, sim.btab, sim.params))
+                              sim.route.evt_cap)
             ft = dkern_facet_tables(sim.geo, sim.btab)
             pool = with_fresh(sim.state.pool, device)
             n_fresh = int(((pool[C_CF].view(torch.int32) == STALE) & (pool[C_ALIVE] > 0.5)).sum())
@@ -2142,7 +2135,7 @@ def membrane_main(mat, card, device):
     from nanokappa_torch.geometry import stl
     from nanokappa_torch.ops import compact, compact_pool, megastep
     from nanokappa_torch.ops.megastep import mega_config
-    from nanokappa_torch.sim.fused import dkern_facet_tables, event_window, v2_eligible
+    from nanokappa_torch.sim.fused import build_route, dkern_facet_tables
     from nanokappa_torch.sim.state import C_ALIVE, C_CF, STALE, init_state
     from nanokappa_torch.sim.step import build_step
 
@@ -2158,7 +2151,8 @@ def membrane_main(mat, card, device):
     mem = int(dom.mesh.interfacets[0])
     mem_x = float(dom.mesh.facet_centroids[mem][0])
     reach = float(tabs.omega_vel[:, 1:4].norm(dim=1).max()) * params.dt
-    evt = event_window(geo, tabs, btab, params)
+    route = build_route(geo, btab, params, tabs)
+    evt = route.evt_cap
     state = init_state(mat, dom, geo, params, n_p, btab, temp_dist="mean", seed=SEED)
     N = params.n_cap
     side = membrane_sides(state.pool, mem_x, mem)
@@ -2250,7 +2244,7 @@ def membrane_main(mat, card, device):
               f"{[round(x, 3) for x in v_b]}) to {[round(x, 4) for x in p_a]}, {d_b:.3f} and {d_a:.3f} A "
               f"from the rim", flush=True)
     checks = {
-        f"{tag}: the v2 step": v2_eligible(geo, params),
+        f"{tag}: the v2 step": route.step == "v2",
         f"{tag}: the membrane's rows two-sided": bool(ft["two_sided"]),
         f"{tag}: frozen == 0": int(out.frozen) == 0,
         f"{tag}: each side's lanes the initial state's once removed and side-changing lanes are counted":
@@ -2534,7 +2528,7 @@ def main(device=None) -> None:
     from nanokappa_torch.ops import _cuda
     from nanokappa_torch.ops.megastep import mega_config
     from nanokappa_torch.sim.boundary_tables import slim_mirror_axis
-    from nanokappa_torch.sim.fused import event_window, mirror_eligible
+    from nanokappa_torch.sim.fused import build_route, mirror_eligible
     from nanokappa_torch.sim.reservoir import constant_counts
     from nanokappa_torch.sim.state import C_CF, C_ALIVE, STALE, init_state
     from nanokappa_torch.sim.step import build_step
@@ -2556,8 +2550,8 @@ def main(device=None) -> None:
     f_np, f_rtab, f_params = run_params(mat, f_dom, PARTICLES, "pooled", device)
     w_dom, w_geo, w_btab = build_ctx(mat, WIRE, device)
     w_np, w_rtab, w_params = run_params(mat, w_dom, PARTICLES, "constant", device)
-    f_evt = event_window(f_geo, tabs, f_btab, f_params)
-    w_evt = event_window(w_geo, tabs, w_btab, w_params)
+    f_evt = build_route(f_geo, f_btab, f_params, tabs).evt_cap
+    w_evt = build_route(w_geo, w_btab, w_params, tabs).evt_cap
     w_cov = float((w_btab._host["corr"] >= 0).mean())
     print(f"contexts: {mat.n_modes} modes; film {f_np} particles, pool {f_params.n_cap}, "
           f"inj_cap {f_params.inj_cap}, evt_cap {f_evt}; wire {w_np} particles, pool "
@@ -2717,7 +2711,7 @@ def main(device=None) -> None:
     # through the driver, on kernel A's full 24-row mirror ---------------------
     sim, sim_dir, k0_launch, k0_checks = kfilm0_main(mat, card, device)
     checks.update(k0_checks)
-    k0_evt = event_window(sim.geo, sim.mtab, sim.btab, sim.params)
+    k0_evt = sim.route.evt_cap
     k0_pool = with_fresh(sim.state.pool, device)
     recs["kfilm0"] = check_megastep(
         "drift_megastep[k film full]", k0_pool, sim.state.T_sv,
@@ -2740,8 +2734,8 @@ def main(device=None) -> None:
     k_dom, k_geo, k_btab = build_ctx(mat, KFILM, device, "k")
     k_np, k_rtab, k_params = run_params(mat, k_dom, PARTICLES, "pooled", device)
     k_params = dataclasses.replace(k_params, temp_interp="linear", scat_model="k")
-    print(f"k film: layout {'slim' if mirror_eligible(k_geo, k_btab, k_params, tabs) else 'plain'}, "
-          f"evt_cap {event_window(k_geo, tabs, k_btab, k_params)}", flush=True)
+    k_route = build_route(k_geo, k_btab, k_params, tabs)
+    print(f"k film: layout {k_route.layout}, evt_cap {k_route.evt_cap}", flush=True)
     out, n0, k_launch, events, k_state, _ = main_path(
         "k film", mat, k_dom, k_geo, k_btab, k_rtab, k_params, k_np, tabs, card,
     )
@@ -2762,7 +2756,7 @@ def main(device=None) -> None:
     recs["F_kfilm"], recs["F_kfilm_2"] = check_event_round(
         "k film", capture_narrow(k_geo, tabs, k_btab, k_rtab, k_params, k_state))
     print_event_round(recs["F_kfilm"], recs["F_kfilm_2"], card)
-    k_cfg = mega_config(k_geo, tabs, k_btab, k_params, event_window(k_geo, tabs, k_btab, k_params))
+    k_cfg = mega_config(k_geo, tabs, k_btab, k_params, k_route.evt_cap)
     recs["kfilm_linear"] = check_megastep("drift_megastep[k film linear]", with_fresh(k_state.pool, device),
                                           k_state.T_sv, k_cfg, 4, 0)
     del out, k_state, k_btab
@@ -2774,7 +2768,7 @@ def main(device=None) -> None:
     p_pool = with_fresh(sim.state.pool, device)
     p_fresh = int(((p_pool[C_CF].view(torch.int32) == STALE) & (p_pool[C_ALIVE] > 0.5)).sum())
     p_cfg = mega_config(sim.geo, sim.mtab, sim.btab, sim.params,
-                        event_window(sim.geo, sim.mtab, sim.btab, sim.params))
+                        sim.route.evt_cap)
     recs["plate"] = check_megastep("drift_megastep[plate centre 8]", p_pool, sim.state.T_sv, p_cfg, 5,
                                    p_fresh * 45 * p_cfg.tris.shape[0])
     # the full branch's triangle cast in the centre mode, on the plate's

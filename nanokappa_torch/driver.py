@@ -16,9 +16,9 @@ repair, the residue and the particle_data.txt checkpoint.
 
 It runs on the card unless --device names another device. Like the JAX
 driver, it takes the fused v2 step wherever the configuration is eligible
-and the general v1 step elsewhere (sim/fused.py v2_eligible), logging why
-(nanokappa_tpu/driver.py:325-330); the v1 step has no deferred RTA, so
-nothing is finalised before a particle_data.txt write. Every reservoir
+and the general v1 step elsewhere (its route, sim/fused.py build_route),
+logging why (nanokappa_tpu/driver.py:325-330); the v1 step has no deferred
+RTA, so nothing is finalised before a particle_data.txt write. Every reservoir
 scheme runs ('fixed_rate' and 'constant' on the autosized copy lattice).
 With a ShardComm (parallel/sharding.py) the Simulation is one rank of a
 sharded run: it builds the global initial state from the run's seed and
@@ -55,9 +55,7 @@ from nanokappa_torch.parallel.sharding import build_sharded_step, shard_seed, sh
 from nanokappa_torch.sim.boundary_tables import (
     build_boundary_tables, write_specular_correspondences,
 )
-from nanokappa_torch.sim.fused import (
-    event_window, make_finalize, v2_fallback_reason,
-)
+from nanokappa_torch.sim.fused import build_route, make_finalize
 from nanokappa_torch.sim.kappa import kappa_connections, kappa_slice
 from nanokappa_torch.sim.repair import make_contains_check
 from nanokappa_torch.sim.reservoir import (
@@ -218,6 +216,8 @@ class Simulation:
         if self.writes:
             write_specular_correspondences(self.btab, material, dom, self.folder)
         self.mtab = material.device_tables(self.device)
+        # which step, pool layout and event window this configuration runs
+        self.route = build_route(self.geo, self.btab, self.params, self.mtab)
 
         # --- state ----------------------------------------------------------
         part_dist = str(args.part_dist[0])
@@ -243,6 +243,7 @@ class Simulation:
                 seed=int(args.seed[0]),
                 empty_subvols=[int(i) for i in args.empty_subvols],
                 host_only=comm is not None,
+                route=self.route,
                 **kw,
             )
             self.state = shard_state(self.state, comm, self.geo, dt)
@@ -306,21 +307,20 @@ class Simulation:
     def _build_runners(self):
         """The batched runner (CONV_BATCH datapoints per call), the lazily
         built 1-datapoint tail runner and the finaliser for the current
-        parameters: the v2 step's applies its pending deferred RTA, the v1
-        step has none. On the v1 step the reason is logged."""
+        route: the v2 step's applies its pending deferred RTA, the v1 step
+        has none. On the v1 step the reason is logged."""
         self.run_steps = self._runner(CONV_BATCH)
         self._run_tail = None
-        self.v1_reason = v2_fallback_reason(self.geo, self.params)
-        if self.v1_reason is None:
+        if self.route.step == "v2":
             self._finalize = make_finalize(self.geo, self.mtab, self.params)
         else:
-            self._say(f"NOTE: running the v1 step (no fused drift kernel): {self.v1_reason}")
+            self._say(f"NOTE: running the v1 step (no fused drift kernel): {self.route.v1_reason}")
             self._finalize = lambda s: s
 
     def _runner(self, n_outer: int):
         return build_sharded_step(
             self.geo, self.mtab, self.btab, self.rtab, self.params, self.comm,
-            n_inner=N_DT_TO_CONV, n_outer=n_outer,
+            n_inner=N_DT_TO_CONV, n_outer=n_outer, route=self.route,
         )
 
     def _say(self, msg: str):
@@ -329,10 +329,11 @@ class Simulation:
             print(msg, flush=True)
 
     def _rebuild_step(self, evt_cap: int):
-        """Rebuild the runners with a wider event window (frozen-storm
-        adaptation). The state carries over unchanged: only buffer widths
-        inside the step grow."""
+        """Rebuild the route and the runners with a wider event window
+        (frozen-storm adaptation). The state carries over unchanged: only
+        buffer widths inside the step grow."""
         self.params = replace(self.params, evt_cap=evt_cap)
+        self.route = build_route(self.geo, self.btab, self.params, self.mtab)
         self._build_runners()
 
     def _sync(self):
@@ -442,7 +443,7 @@ class Simulation:
         self._frozen_prev = frozen_now
         if d_frozen <= 0.01 * self.params.n_cap:
             return
-        cur = event_window(self.geo, self.mtab, self.btab, self.params)
+        cur = self.route.evt_cap
         new_cap = min(2 * cur, self.params.n_cap // 4)
         if self.evt_regrows < MAX_REGROWS and new_cap > cur:
             self.evt_regrows += 1

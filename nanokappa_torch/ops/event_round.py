@@ -19,8 +19,8 @@ as XLA-fused jnp code, nanokappa_tpu/sim/cascade.py:283,482).
 It covers what `covers` says: box geometries (the slab cast) with slice
 subvolumes under nearest or linear temperatures, either scattering model.
 Triangle meshes keep the torch round, whose re-cast is kernel E, and so do
-centre subvolumes: other casts and another classifier. The step decides
-once, when it is built (sim/fused.py make_step_v2).
+centre subvolumes: other casts and another classifier. The route asks
+`covers` once (sim/fused.py build_route, its `kernel_f`).
 
 What bounds it on the card: launch latency (the rows read and written once
 are 0.26 MB at the film's 2,048 lanes, 0.08 us at 3.35 TB/s).

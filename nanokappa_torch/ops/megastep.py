@@ -325,18 +325,19 @@ def _pad_centers(centers: torch.Tensor) -> torch.Tensor:
 
 def mega_config(
     geo, mat, btab, params, ecap: int, flip_axis: int | None = None,
-    kernel_cast: bool | None = None, layout: str | None = None,
+    kernel_cast: bool | None = None, layout: str | None = None, dkern: bool | None = None,
 ) -> MegaConfig:
     """The drift kernel's tables for one geometry and run (built once) on
-    the pool `layout` (sim/fused.py pool_layout): by default "slim" when
-    `flip_axis` (the slim gate's wall axis) is given, else "plain" — with
-    the diffuse tables when there are rough walls and the kernel casts,
-    with no facet or triangle table when it cannot (kernel_cast off); the
-    "full" mirror needs the kernel's cast. `kernel_cast` defaults to what the geometry
-    allows (sim/fused.py kernel_cast_ok); False forces the cast-off branch.
-    The subvolume/temperature mode follows the geometry's subvolume type
-    and params.temp_interp (linear on slices only, sim/fused.py
-    require_slice)."""
+    the pool `layout`: by default "slim" when `flip_axis` (the slim gate's
+    wall axis) is given, else "plain" — with the diffuse tables when there
+    are rough walls and the kernel casts (`dkern`, by default), with no
+    facet or triangle table when it cannot (kernel_cast off); the "full"
+    mirror needs the kernel's cast. `kernel_cast` defaults to what the
+    geometry allows (sim/fused.py kernel_cast_ok); False forces the
+    cast-off branch. The step passes its route's layout, flip axis, cast
+    and diffuse branch (sim/fused.py build_route). The subvolume/temperature
+    mode follows the geometry's subvolume type and params.temp_interp
+    (linear on slices only)."""
     from nanokappa_torch.geometry.device import host
     from nanokappa_torch.ops.raycast import box_tables, tri_table
     from nanokappa_torch.sim.fused import kernel_cast_ok
@@ -350,7 +351,10 @@ def mega_config(
     kcast = kernel_cast_ok(geo) if kernel_cast is None else bool(kernel_cast)
     if mirror and not kcast:
         raise ValueError("the mirror layouts need kernel A's in-kernel cast")
-    dkern = kcast and not mirror and btab is not None and int(btab.n_rough) > 0
+    if dkern is None:
+        dkern = kcast and not mirror and btab is not None and int(btab.n_rough) > 0
+    elif dkern and (mirror or not kcast):
+        raise ValueError("the in-kernel diffuse branch runs the plain layout with kernel A's cast")
     bounds = host(geo.bounds)
     ax = int(geo.slice_axis)
     SV = int(geo.n_subvols)

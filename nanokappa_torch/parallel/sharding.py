@@ -215,21 +215,25 @@ def shard_state(state: SimState, comm: ShardComm | None, geo, dt: float) -> SimS
 
 
 def build_sharded_step(geo, mat, btab, rtab, params, comm: ShardComm | None,
-                       n_inner: int = 1, n_outer: int = 1):
+                       n_inner: int = 1, n_outer: int = 1, route=None):
     """run(state) -> (state, outputs) on this rank's shard
     (nanokappa_tpu/parallel/sharding.py build_sharded_step :85): the port's
     block runner (sim/step.py make_v2_block_runner: the lifetime refresh,
     the compaction cadence, one ledger reset a block) around the v2 or the
     v1 step with `comm` threaded in, so each step's sums are added up over
-    the ranks in one all-reduce. params.n_shards must equal comm.size;
-    outputs are replicated. `comm=None` is sim/step.py build_step."""
+    the ranks in one all-reduce; `route` is the configuration's
+    (sim/fused.py build_route, built here when not given). params.n_shards
+    must equal comm.size; outputs are replicated. `comm=None` is sim/step.py
+    build_step."""
+    from nanokappa_torch.sim.fused import build_route
     from nanokappa_torch.sim.step import make_step, make_v2_block_runner
 
     S = 1 if comm is None else comm.size
     if params.n_shards != S:
         raise ValueError(f"params.n_shards = {params.n_shards}, the particle group has {S} ranks")
-    step = make_step(geo, mat, btab, rtab, params, comm)
-    return make_v2_block_runner(geo, mat, btab, params, step, n_inner, n_outer)
+    route = route or build_route(geo, btab, params, mat)
+    step = make_step(geo, mat, btab, rtab, params, comm, route=route)
+    return make_v2_block_runner(geo, mat, btab, params, step, n_inner, n_outer, route)
 
 
 def build_ensemble_step(geo, mat, btab, rtab, params, particle: ShardComm,

@@ -11,7 +11,9 @@ nanokappa_tpu/sim/binning.py, slice, grid and voronoi subvolumes).
   * T = f(E) and E = f(T): searchsorted + lerp over the monotone tables
     (classes/Phonon.py:372-390),
   * segment sums: `index_add_` into one overflow row that is dropped;
-    `bin_all` is the v1 step's subvolume reduction on them.
+    `bin_sums` is the v1 step's subvolume reduction on them, and
+    `normalize_bins` both steps' normalisation of the sums
+    (nanokappa_tpu/sim/binning.py bin_all :131 in two parts).
 """
 
 from __future__ import annotations
@@ -165,28 +167,10 @@ def segment_sum(vals: torch.Tensor, seg: torch.Tensor, n_seg: int) -> torch.Tens
     return out[:n_seg]
 
 
-def bin_all(
-    geo: DeviceGeometry,
-    mat: MaterialTables,
-    energies: torch.Tensor,  # (N,)
-    vel: torch.Tensor,  # (N,3)
-    sv: torch.Tensor,
-    alive: torch.Tensor,
-    energy_normal: str,
-    particle_density: float,
-):
-    """All subvolume reductions of the v1 step in one segment sum of
-    [e, e*vx, e*vy, e*vz, alive] (nanokappa_tpu/sim/binning.py bin_all
-    :131; reference classes/Population.py:704-747). Returns (E_dev_sv (SV,)
-    eV/A^3, phi_sv (SV,3) in eV/ps/A^2, Np_sv (SV,) i32)."""
-    return normalize_bins(
-        geo, mat, bin_sums(geo, energies, vel, sv, alive), energy_normal, particle_density
-    )
-
-
 def bin_sums(geo: DeviceGeometry, energies, vel, sv, alive) -> torch.Tensor:
-    """bin_all's raw (SV, 5) sums [e, e*vx, e*vy, e*vz, alive]: what the
-    shards of a sharded run add up before normalize_bins."""
+    """The v1 step's raw (SV, 5) subvolume sums [e, e*vx, e*vy, e*vz,
+    alive] in one segment sum (reference classes/Population.py:704-747):
+    what the shards of a sharded run add up before normalize_bins."""
     n_sv = geo.n_subvols
     vals = torch.cat(
         [energies[:, None], energies[:, None] * vel, alive.to(energies.dtype)[:, None]], dim=1
@@ -196,7 +180,9 @@ def bin_sums(geo: DeviceGeometry, energies, vel, sv, alive) -> torch.Tensor:
 
 def normalize_bins(geo: DeviceGeometry, mat: MaterialTables, sums, energy_normal: str,
                    particle_density: float):
-    """bin_all's normalisation of the raw sums: (E_dev_sv, phi_sv, Np_sv)."""
+    """The normalisation of raw (SV, 5) sums, the v2 step's (kernel A's and
+    the event rows') or the v1 step's: (E_dev_sv (SV,) eV/A^3, phi_sv
+    (SV, 3) in eV/ps/A^2, Np_sv (SV,) i32)."""
     e_sv = sums[:, 0]
     phi = sums[:, 1:4]
     np_sv = sums[:, 4].to(torch.int32)

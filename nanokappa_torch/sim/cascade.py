@@ -1,6 +1,7 @@
-"""The boundary-event cascade: the v1 step's whole cascade (`run_cascade`)
-and the narrow machinery both steps share (`run_event_buffer`): absorb /
-periodic / reflect on a fixed-width buffer of particle rows.
+"""The boundary-event cascade: the v1 step's whole cascade
+(`cascade_tallies`) and the narrow machinery both steps share
+(`run_event_buffer`): absorb / periodic / reflect on a fixed-width buffer
+of particle rows.
 
 Torch twin of nanokappa_tpu/sim/cascade.py (`run_cascade` :133,
 `run_event_buffer` :283 and `_event_round` :482). Per round, a lane sitting
@@ -30,7 +31,7 @@ through ops/raycast.py to kernel E.
 
 Rows are SoA (16, E): the drift kernel exports them in that layout.
 
-The v1 cascade (`run_cascade`) runs the stale lanes' ray cast, one
+The v1 cascade (`cascade_tallies`) runs the stale lanes' ray cast, one
 full-width drift written in place into the pool's rows, the event
 compaction (kernel C at the pool's width), the narrow machinery on the
 gathered event rows, and their merge back into the pool (kernel D,
@@ -114,28 +115,9 @@ def _set_lanes(row: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torc
     return ext[:-1]
 
 
-def run_cascade(
-    state: SimState,
-    stale_idx: torch.Tensor,  # (inj_cap,) i32 lanes needing a ray cast (the
-    #   injections sim/reservoir.py inject appended); N on unused lanes
-    geo: DeviceGeometry,
-    mat: MaterialTables,
-    btab: BoundaryTables,
-    params: SimParams,
-    gen: torch.Generator,
-) -> SimState:
-    """The v1 step's drift + boundary cascade on the plain 16-row pool,
-    IN PLACE, its tallies settled into the state's ledgers (see
-    cascade_tallies)."""
-    settle_cascade(state, geo.n_reservoirs, *cascade_tallies(
-        state, stale_idx, geo, mat, btab, params, gen
-    ))
-    return state
-
-
 def settle_cascade(state: SimState, R: int, ledger, lost, frozen) -> SimState:
-    """Add a cascade's tallies to the state: n_leaving, the reservoir
-    ledgers, the (3,) losses and the frozen count."""
+    """Add a step's tallies to the state (sim/step.py postlude): n_leaving,
+    the reservoir ledgers, the (3,) losses and the frozen count."""
     state.n_leaving = ledger[:R, 4].to(torch.int32)
     state.res_energy_balance = state.res_energy_balance - ledger[:R, 0]
     state.res_heat_flux = state.res_heat_flux + ledger[:R, 1:4]
@@ -146,7 +128,8 @@ def settle_cascade(state: SimState, R: int, ledger, lost, frozen) -> SimState:
 
 def cascade_tallies(
     state: SimState,
-    stale_idx: torch.Tensor,
+    stale_idx: torch.Tensor,  # (inj_cap,) i32 lanes needing a ray cast (the
+    #   injections sim/reservoir.py inject appended); N on unused lanes
     geo: DeviceGeometry,
     mat: MaterialTables,
     btab: BoundaryTables,
@@ -165,7 +148,7 @@ def cascade_tallies(
     Returns the step's tallies as device tensors, no host read: the
     (R8, 5) ledger, the (3,) int32 losses [0, k_max-stuck, defective] and
     the int32 frozen count, which a sharded step sums over the shards
-    before settle_cascade adds them to the state."""
+    before the step's postlude (sim/step.py) adds them to the state."""
     pool = state.pool
     if state.layout != "plain":
         raise ValueError(f"the v1 cascade runs the 'plain' pool, the state is {state.layout!r}")

@@ -26,6 +26,10 @@ velocity or the k scattering model, on three paths:
     kernel E (ops/raycast_large.py), every boundary event exports — absorbing
     and periodic ones too — and the narrow machinery re-casts through
     kernel E; the "plain" pool.
+Which path, layout, kernel branches and event window a configuration runs
+is its route (`Route`), decided once by `build_route`; kernel_cast_ok,
+mirror_eligible, dkern_active, autosize_evt_cap and v2_fallback_reason are
+its steps, kept by the JAX package's names.
 Reference semantics (classes/Population.py:1724-1769 run_timestep) with the
 JAX package's one reordering: the RTA scattering of step k runs at the
 START of step k+1's drift kernel ("deferred RTA"; `make_finalize` applies
@@ -40,10 +44,12 @@ Pipeline per step:
   3. the narrow event machinery (sim/cascade.py) on the exported rows: on
      a box with slices kernel F (ops/event_round.py), one launch a round,
      elsewhere the torch rounds,
-  4. its rows are binned and appended at the tail WHOLE (the EVT_CAP window
+  4. its rows are binned, given the layout's rows (`layout_rows`, as the
+     injections are) and appended at the tail WHOLE (the EVT_CAP window
      advances the tail even where lanes are dead — the runner's compaction
      cadence in sim/step.py is sized for that),
-  5. an O(SV) postlude inverts T(E).
+  5. the O(SV) postlude both steps share (sim/step.py postlude) inverts
+     T(E).
 
 The tail position is a host integer: injection counts come from the host
 accumulators of the `pooled` and `constant` schemes, so no step of theirs
@@ -54,18 +60,14 @@ count back, `one_to_one` the previous step's (R,) n_leaving
 
 from __future__ import annotations
 
-from dataclasses import replace
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
-from nanokappa_torch.constants import EVPSA2_IN_WM2
 from nanokappa_torch.geometry.device import DeviceGeometry, host
 from nanokappa_torch.material.tables import MaterialTables
-from nanokappa_torch.sim.binning import (
-    interp_T_particles, lookup_E_of_T, lookup_T_of_E, particle_energies,
-    segment_sum, subvol_id,
-)
+from nanokappa_torch.sim.binning import interp_T_particles, particle_energies, segment_sum, subvol_id
 from nanokappa_torch.sim.boundary_tables import (
     K_MODELS, BoundaryTables, combined_mirror_rows, slim_mirror_axis,
 )
@@ -138,30 +140,14 @@ def dkern_active(geo, btab, params: SimParams, mat) -> bool:
     itself, from the boundary tables; the JAX package's presample pool and
     its limits (<= 8 table rows, <= 2 lifetime bins) are TPU workarounds
     that the port does not carry."""
+    return _dkern(geo, btab, mat, mirror_eligible(geo, btab, params, mat))
+
+
+def _dkern(geo, btab, mat, mirror: bool) -> bool:
     return (
         btab is not None and mat is not None and int(btab.n_rough) > 0
-        and kernel_cast_ok(geo) and not mirror_eligible(geo, btab, params, mat)
+        and kernel_cast_ok(geo) and not mirror
     )
-
-
-def kmodel_degen(btab, params: SimParams) -> bool:
-    """The k model with equal-frequency partner branches: its
-    degenerate-branch split is drawn at cache fill, so a lane's cached
-    partner is not always the exact crystal mirror
-    (nanokappa_tpu/sim/fused.py:611-620)."""
-    return params.scat_model in K_MODELS and bool((host(btab.degen_partner) >= 0).any())
-
-
-def pool_layout(geo, btab, params: SimParams, mat) -> str:
-    """The pool layout the step runs on (sim/state.py): on the
-    specular-mirror path "slim" where the partner is the exact crystal
-    mirror (slim_mirror_axis), "full" where it is not or where the k
-    model's split is drawn; "plain" off that path and on the v1 step."""
-    if not v2_eligible(geo, params) or not mirror_eligible(geo, btab, params, mat):
-        return "plain"
-    if kmodel_degen(btab, params) or slim_mirror_axis(geo, btab, mat) is None:
-        return "full"
-    return "slim"
 
 
 POOL_TILE_BN = 32768  # the JAX kernels' tile width (nanokappa_tpu/ops/megastep.py BN)
@@ -216,24 +202,76 @@ def v2_fallback_reason(geo, params: SimParams) -> str | None:
     return None
 
 
-def v2_eligible(geo, params: SimParams) -> bool:
-    """Does the fused v2 step (make_step_v2) run this configuration? Box
-    geometry or a mesh of at most LARGE_TRI_MAX triangles; slices (nearest
-    or linear T, at most MAX_SLICES) or grid/voronoi centres (nearest T, at
-    most MAX_CENTERS); at most 7 reservoirs; a tile-aligned pool; and
-    step_impl other than "v1". Everything else runs the v1 step."""
-    return v2_fallback_reason(geo, params) is None
+@dataclass(frozen=True)
+class Route:
+    """What the step runs for one configuration, decided once (build_route)
+    and read by every part that builds or feeds it: the step builders
+    (sim/step.py make_step, make_step_v2), the block runner's compaction
+    cadence, init_state's pool layout, kernel A's configuration and the
+    driver. The kernel fields are the v2 step's; the v1 step runs none of
+    them, and has them all False."""
+
+    step: str  # "v2", the fused step (make_step_v2), or "v1", the general
+    #   one (sim/step.py make_step)
+    v1_reason: str | None  # why the v1 step, in the JAX package's words
+    #   (v2_fallback_reason); None on v2
+    layout: str  # the pool layout (sim/state.py): "slim", "full" or "plain"
+    flip_axis: int | None  # the slim gate's wall axis; None off "slim"
+    kernel_cast: bool  # kernel A casts rays itself; off, kernel E pre-casts
+    #   the injections and re-casts every boundary event
+    dkern: bool  # kernel A's in-kernel diffuse branch
+    k_split: bool  # the k model's degenerate split, drawn at every fill of
+    #   the full mirror cache (injection, the narrow rounds' refill)
+    kernel_f: bool  # kernel F runs the narrow rounds (ops/event_round.py),
+    #   on a CUDA buffer; else the torch rounds
+    evt_cap: int  # the event window's width: on v2 kernel A's export cap
+    #   and each step's tail advance, on v1 its event compaction's width
+    #   (sim/cascade.py v1_event_cap); at one shard's pool
+
+    @property
+    def mirror(self) -> bool:
+        """The in-kernel specular-mirror path (the slim and full layouts)."""
+        return self.layout != "plain"
 
 
-def require_slice(geo, btab, params: SimParams, mat) -> None:
-    """Raise ValueError for a configuration neither step of the port can
-    run. Every other configuration runs, on one shard or several
-    (parallel/sharding.py): the v2 step where v2_eligible, the v1 step
-    (sim/step.py make_step) elsewhere."""
+def build_route(geo, btab, params: SimParams, mat) -> Route:
+    """The route of one configuration (`mat`: the device MaterialTables or
+    the host Material). Raises ValueError for a configuration neither step
+    runs; every other one runs, on one shard or several
+    (parallel/sharding.py): the v2 step where v2_fallback_reason gives no
+    reason (the JAX package's conditions, save that "auto" takes v2 on the
+    CPU too), the v1 step elsewhere. On v2 the layout is "slim" on the
+    specular-mirror path (mirror_eligible) where the partner is the exact
+    crystal mirror (slim_mirror_axis), "full" on that path where it is not
+    or where the k model's split is drawn, "plain" off it."""
     if params.temp_interp == "linear" and geo.subvol_type == "slice" and geo.n_subvols < 2:
         raise ValueError("temp_interp='linear' needs at least 2 slices")
     if geo.n_reservoirs > 0 and params.res_gen not in RES_GENS:
         raise ValueError(f"unknown reservoir_gen {params.res_gen!r}")
+    reason = v2_fallback_reason(geo, params)
+    if reason is not None:
+        return Route("v1", reason, "plain", None, False, False, False, False, v1_event_cap(params))
+    mirror = mirror_eligible(geo, btab, params, mat)
+    # the k model with equal-frequency partner branches draws its split at
+    # cache fill, so a lane's cached partner is not always the exact
+    # crystal mirror (nanokappa_tpu/sim/fused.py:611-620)
+    k_split = mirror and params.scat_model in K_MODELS and bool((host(btab.degen_partner) >= 0).any())
+    flip = slim_mirror_axis(geo, btab, mat) if mirror and not k_split else None
+    layout = "slim" if flip is not None else ("full" if mirror else "plain")
+    dkern = _dkern(geo, btab, mat, mirror)
+    return Route(
+        step="v2",
+        v1_reason=None,
+        layout=layout,
+        flip_axis=flip,
+        kernel_cast=kernel_cast_ok(geo),
+        dkern=dkern,
+        k_split=k_split,
+        kernel_f=event_round.covers(geo, params),
+        evt_cap=params.evt_cap or autosize_evt_cap(
+            geo, mat, params, mirror, params.n_cap // params.n_shards, btab=btab, dkern=dkern,
+        ),
+    )
 
 
 def dkern_facet_tables(geo, btab) -> dict:
@@ -261,7 +299,8 @@ def dkern_facet_tables(geo, btab) -> dict:
     )
 
 
-def autosize_evt_cap(geo, mat, params: SimParams, use_mirror: bool, N_shard: int, btab=None) -> int:
+def autosize_evt_cap(geo, mat, params: SimParams, use_mirror: bool, N_shard: int, btab=None,
+                     dkern: bool | None = None) -> int:
     """Default event-window width (nanokappa_tpu/sim/fused.py:183), without
     the JAX package's 128 round-up.
 
@@ -273,7 +312,9 @@ def autosize_evt_cap(geo, mat, params: SimParams, use_mirror: bool, N_shard: int
     flux-weighted specular share over the wall rows, + 0.15. With
     kernel_cast off every boundary hit exports, so the rate counts the
     TOTAL boundary area, and the width is 1.25x the estimate: a buffer
-    margin (the JAX package takes 1.0x, unmeasured), not physics."""
+    margin (the JAX package takes 1.0x, unmeasured), not physics. `dkern`
+    is the in-kernel diffuse gate where the caller has it (None:
+    dkern_active); `mat` the device tables or the host Material."""
     from nanokappa_torch.geometry.domain import BC
 
     if use_mirror:
@@ -288,12 +329,15 @@ def autosize_evt_cap(geo, mat, params: SimParams, use_mirror: bool, N_shard: int
     evt_area = float(areas[bc[tri_f] == int(BC.ROUGH)].sum()) if kcast else float(areas.sum())
     if evt_area == 0.0:
         return floor
-    ov = host(mat.omega_vel)
-    act = host(mat.active).astype(bool)
+    tabs = mat if hasattr(mat, "omega_vel") else mat.device_tables("cpu")
+    ov = host(tabs.omega_vel)
+    act = host(tabs.active).astype(bool)
     v = np.linalg.norm(ov[:, 1:4], axis=1)
     vbar = float(v[act].mean()) if act.any() else float(v.mean())
     rate = evt_area * vbar * float(params.dt) / (4.0 * float(geo.volume))
-    if btab is not None and dkern_active(geo, btab, params, mat):
+    if dkern is None:
+        dkern = btab is not None and dkern_active(geo, btab, params, mat)
+    if dkern:
         spec = btab._host["specularity"]  # (NU, M), zeroed where corr < 0
         normals = btab._host["u_normals"]  # (NU, 3)
         v3 = ov[:, 1:4].astype(np.float64)
@@ -309,20 +353,6 @@ def autosize_evt_cap(geo, mat, params: SimParams, use_mirror: bool, N_shard: int
         return int(np.clip(est, floor, max(floor, N_shard // 8)))
     est = int(rate * N_shard * (1.0 if kcast else 1.25))
     return int(np.clip(est, floor, max(floor, N_shard // 8)))
-
-
-def event_window(geo, mat, btab, params: SimParams) -> int:
-    """EVT_CAP, the event window's width: on the v2 step kernel A's export
-    cap and the tail advance of every step's append (the runner's
-    compaction cadence in sim/step.py is sized from it); on the v1 step the
-    width of its event compaction (sim/cascade.py v1_event_cap). Both size
-    at one shard's pool, n_cap // n_shards."""
-    if not v2_eligible(geo, params):
-        return v1_event_cap(params)
-    return params.evt_cap or autosize_evt_cap(
-        geo, mat, params, mirror_eligible(geo, btab, params, mat),
-        params.n_cap // params.n_shards, btab=btab,
-    )
 
 
 def step_seed(state: SimState) -> int:
@@ -404,6 +434,29 @@ def mirror_rows(btab, mat, mtab, rows, T_sv, sv, u=None):
     return mirror_assemble(mat, mode, corr, m_om, m_v, sv, T_sv)
 
 
+def layout_rows(route: Route, btab, mat, mtab, rows, sv, T_sv, gen) -> torch.Tensor:
+    """Fresh (16, E) particle rows, injected or out of the narrow rounds, as
+    the rows of the route's pool layout, the partner read from the
+    combined wall table `mtab` ([p, corr, omega, vx, vy, vz, ..] per mode)
+    at the lanes' modes: on "slim" the slope form's intercept a in C_TAU,
+    then the partner row and the slope b; on "full" the intercept and the
+    whole mirror cache (mirror_rows), the k model's split drawn where the
+    route draws it (one uniform a lane from `gen`); on "plain" the rows as
+    they are. `sv` holds the lanes' subvolumes. C_TAU is written on every
+    lane: the caller appends only the valid ones."""
+    if route.layout == "slim":
+        mode = torch.clamp(as_i32(rows[C_MODE]), 0, mat.tau.shape[1] - 1)
+        a, b = slope_pair(mat, T_sv, sv, mode)
+        rows[C_TAU] = a
+        return torch.cat([rows, mtab[mode.long(), 1][None], b[None]])
+    if route.layout == "full":
+        u = torch.rand(rows.shape[1], generator=gen, device=rows.device) if route.k_split else None
+        mrows, a = mirror_rows(btab, mat, mtab, rows, T_sv, sv, u)
+        rows[C_TAU] = a
+        return torch.cat([rows, mrows])
+    return rows
+
+
 def _append_window(pool, rows, valid, tail: int) -> bool:
     """Write `rows` (C, w) into pool lanes [tail, tail + w) where `valid`;
     the window's other lanes keep their rows (nanokappa_tpu/sim/fused.py
@@ -424,60 +477,39 @@ def make_step_v2(
     rtab: ReservoirTables,
     params: SimParams,
     comm=None,
+    route: Route | None = None,
 ):
     """Returns step(state) -> (state, StepOutputs), advancing `state` in
-    place. With `comm` (parallel/sharding.py ShardComm) the state is one
-    shard of the pool: the step's subvolume sums, ledger, losses and frozen
-    count are summed over the shards in one all-reduce before the
-    normalisation and the T(E) inversion, so every shard ends the step with
-    the same T_sv and outputs; `comm=None` is one shard, with no
+    place, on the configuration's route (build_route when not given). With
+    `comm` (parallel/sharding.py ShardComm) the state is one shard of the
+    pool: the step's subvolume sums, ledger, losses and frozen count are
+    summed over the shards in one all-reduce before the normalisation and
+    the T(E) inversion (sim/step.py postlude), so every shard ends the step
+    with the same T_sv and outputs; `comm=None` is one shard, with no
     collective."""
     from nanokappa_torch.ops.megastep import R8, drift_megastep, mega_config
-    from nanokappa_torch.sim.step import StepOutputs
+    from nanokappa_torch.sim.step import postlude
 
-    require_slice(geo, btab, params, mat)
-    kcast = kernel_cast_ok(geo)
+    route = route or build_route(geo, btab, params, mat)
+    layout = route.layout
     device = geo.device
-    layout = pool_layout(geo, btab, params, mat)
-    slim = layout == "slim"
-    full = layout == "full"
-    mirror = slim or full
-    flip = slim_mirror_axis(geo, btab, mat) if slim else None
-    # the k model's split, drawn again at every cache fill
-    kdegen = full and kmodel_degen(btab, params)
     R = geo.n_reservoirs
     SV = geo.n_subvols
-    M = mat.tau.shape[1]
-    EVT_CAP = event_window(geo, mat, btab, params)
-    cfg = mega_config(geo, mat, btab, params, EVT_CAP, flip, layout=layout)
-    # mega_config decides in-kernel diffuse reflection from the layout; on
-    # the layout pool_layout gives, that is dkern_active's decision
-    if cfg.dkern != dkern_active(geo, btab, params, mat):
-        raise RuntimeError("kernel A's in-kernel diffuse branch disagrees with dkern_active")
+    EVT_CAP = route.evt_cap
+    cfg = mega_config(geo, mat, btab, params, EVT_CAP, route.flip_axis, kernel_cast=route.kernel_cast,
+                      layout=layout, dkern=route.dkern)
     SV8 = cfg.sv8
     # rounds 2+ of the narrow machinery: the mirror path's buffer is already
     # the deep-chain tail (E/4); off it first bounces dominate, and with
     # in-kernel diffuse the buffer is mostly specular lanes that can chain
     # (nanokappa_tpu/sim/fused.py:971-973)
-    evt2_cap = None if mirror else (EVT_CAP // 8 if cfg.dkern else EVT_CAP // 16)
+    evt2_cap = None if route.mirror else (EVT_CAP // 8 if route.dkern else EVT_CAP // 16)
     # the narrow rounds as kernel F (one launch a round) where it covers the
     # geometry: the box's slab cast on slices; the torch round elsewhere
-    narrow = event_round.round_tables(geo, mat, btab, params) if event_round.covers(geo, params) else None
-    if mirror:
-        # the combined wall table [p, corr, omega, vx, vy, vz, ..] of every mode
-        cmr = np.ascontiguousarray(combined_mirror_rows(btab, mat))
-        mtab = torch.as_tensor(cmr, device=device)
-        if R > 0:
-            # injections read their partner from the SAME table row that
-            # gives omega/velocity/tau: [omega, vx, vy, vz, tau, corr] on
-            # "slim", [.., corr, omega, vx, vy, vz of the partner] on "full"
-            ip = host(rtab.inj_props)
-            w = 2 if slim else 6
-            ext = np.concatenate(
-                [ip, np.broadcast_to(cmr[None, :, 1:w], ip.shape[:2] + (w - 1,))], axis=-1,
-            )
-            rtab = replace(rtab, inj_props=torch.as_tensor(ext, device=device))
-    dens = 1.0 / (mat.n_qpoints * mat.volume_unitcell)
+    narrow = event_round.round_tables(geo, mat, btab, params) if route.kernel_f else None
+    # the combined wall table [p, corr, omega, vx, vy, vz, ..] of every mode
+    mtab = torch.as_tensor(np.ascontiguousarray(combined_mirror_rows(btab, mat)),
+                           device=device) if route.mirror else None
     lane_e = torch.arange(EVT_CAP, device=device)
     lane_i = torch.arange(params.inj_cap, device=device)
 
@@ -491,34 +523,14 @@ def make_step_v2(
         # whole window the batch is dropped and counted
         lost_inj = 0
         if R > 0:
-            rows, n_valid, new_counter, dropped, props = sample_injections(
+            rows, n_valid, new_counter, dropped = sample_injections(
                 state.res_counter, geo, rtab, params, state.gen, state.n_leaving,
                 shard=0 if comm is None else comm.rank,
             )
-            if mirror:
-                mode_inj = torch.clamp(as_i32(rows[C_MODE]), 0, M - 1)
-                sv_inj = subvol_id(geo, rows[C_POS].T)
-            if slim:
-                a_inj, b_inj = slope_pair(mat, state.T_sv, sv_inj, mode_inj)
-                rows[C_TAU] = a_inj
-                rows = torch.cat([rows, props[:, 5][None], b_inj[None]])
-            elif full:
-                corr_inj = as_i32(props[:, 5])
-                if kdegen:
-                    # the split drawn at injection, the effective partner's
-                    # omega and velocity gathered again
-                    u = torch.rand(corr_inj.shape[0], generator=state.gen, device=device)
-                    corr_inj = degen_split(btab, corr_inj, u)
-                    ov = mat.omega_vel[torch.clamp(corr_inj, 0, M - 1).long()]
-                    m_om, m_v = ov[:, 0], ov[:, 1:4]
-                else:
-                    m_om, m_v = props[:, 6], props[:, 7:10]
-                mrows, a_inj = mirror_assemble(
-                    mat, mode_inj, corr_inj, m_om, m_v, sv_inj, state.T_sv,
-                )
-                rows[C_TAU] = a_inj
-                rows = torch.cat([rows, mrows])
-            if not kcast:
+            if route.mirror:
+                rows = layout_rows(route, btab, mat, mtab, rows, subvol_id(geo, rows[C_POS].T),
+                                   state.T_sv, state.gen)
+            if not route.kernel_cast:
                 # pre-cast at buffer width (kernel A cannot cast here):
                 # freshness rides the sign of C_TCOLL, t_enc = -t/dt - 1 < 0,
                 # with the real facet in C_CF, so the lane still skips the
@@ -561,79 +573,27 @@ def make_step_v2(
         ebins = segment_sum(vals_e, torch.where(alive_e, sv_e, SV8), SV8)
 
         # 5. the event rows append at the tail, uncompacted (the window
-        # advances the tail by EVT_CAP; dead lanes keep the window's rows)
+        # advances the tail by EVT_CAP; dead lanes keep the window's rows),
+        # with fresh caches for the (possibly mode-changed) rows
         rows_out[C_SV] = as_f32(sv_e)
-        if slim:
-            # slope form: the intercepts (and slopes) of the lanes' modes
-            mode_e = torch.clamp(as_i32(rows_out[C_MODE]), 0, M - 1)
-            a_e, b_e = slope_pair(mat, state.T_sv, sv_e, mode_e)
-            rows_out[C_TAU] = torch.where(alive_e, a_e, rows_out[C_TAU])
-            rows_out = torch.cat([rows_out, mtab[mode_e.long(), 1][None], b_e[None]])
-        elif full:
-            # fresh caches for the (possibly mode-changed) rows, the split
-            # drawn again; the intercepts of the lanes' modes
-            u = torch.rand(EVT_CAP, generator=state.gen, device=device) if kdegen else None
-            mrows_e, a_e = mirror_rows(btab, mat, mtab, rows_out, state.T_sv, sv_e, u)
-            rows_out[C_TAU] = torch.where(alive_e, a_e, rows_out[C_TAU])
-            rows_out = torch.cat([rows_out, mrows_e])
+        rows_out = layout_rows(route, btab, mat, mtab, rows_out, sv_e, state.T_sv, state.gen)
         if _append_window(pool, rows_out, alive_e, tail):
             tail += EVT_CAP
             lost3 = torch.zeros((), dtype=torch.int32, device=device)
         else:
             lost3 = alive_e.sum(dtype=torch.int32)
 
-        # 6. postlude: normalisation + T inversion (sim/binning.py semantics)
-        sums = (kbins + ebins)[:SV]
-        ledger = kledger + mledger
-        lost = torch.stack([lost3 + lost_inj, lost_stuck, lost_def]).to(torch.int32)
-        frozen = (frozen_k + frozen2).to(torch.int32)
-        if comm is not None:
-            # the raw sums of every shard, before the normalisation
-            sums, ledger, lost, frozen = comm.reduce_sums(sums, ledger, lost, frozen)
-        e_raw = sums[:, 0]
-        phi_raw = sums[:, 1:4]
-        np_sv = sums[:, 4].to(torch.int32)
-        if params.energy_normal == "fixed":
-            vol = geo.subvol_volume
-            norm = torch.full_like(vol, float(params.n_active_modes)) / (
-                params.particle_density * vol
-            )
-        else:  # 'mean'
-            npf = torch.clamp(np_sv, min=1).float()
-            norm = torch.full_like(npf, float(params.n_active_modes)) / npf
-            norm = torch.where(np_sv == 0, 0.0, norm)
-        e_sv = e_raw * norm * dens
-        phi = phi_raw * (norm * dens)[:, None] * EVPSA2_IN_WM2
-        E_sv = e_sv + lookup_E_of_T(mat, state.T_sv)
-        T_new = lookup_T_of_E(mat, E_sv)
-
-        state.T_sv = T_new
-        state.Np_sv = np_sv
+        # 6. the postlude both steps share
         state.tail = tail
-        state.n_leaving = ledger[:R, 4].to(torch.int32)
-        state.res_energy_balance = state.res_energy_balance - ledger[:R, 0]
-        state.res_heat_flux = state.res_heat_flux + ledger[:R, 1:4]
-        state.lost = state.lost + lost
-        state.frozen = state.frozen + frozen
         state.kernel_events = state.kernel_events + torch.cat(
             [counts[3:5], swaps[None], counts[2:3]]
         )
-        state.step += 1
-        out = StepOutputs(
-            T_sv=T_new,
-            E_sv=E_sv,
-            phi_sv=phi,
-            Np_sv=np_sv,
-            N_p=np_sv.sum(),
-            total_energy=e_raw.sum(),
-            res_energy_balance=state.res_energy_balance,
-            res_heat_flux=state.res_heat_flux,
-            n_leaving=state.n_leaving,
-            lost=state.lost.sum(),
-            lost_split=state.lost,
-            frozen=state.frozen,
+        sums = (kbins + ebins)[:SV]
+        return postlude(
+            state, geo, mat, params, comm, sums, kledger + mledger,
+            torch.stack([lost3 + lost_inj, lost_stuck, lost_def]).to(torch.int32),
+            (frozen_k + frozen2).to(torch.int32),
         )
-        return state, out
 
     return step
 

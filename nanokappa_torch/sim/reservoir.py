@@ -333,9 +333,7 @@ def sample_injections(
     runs at rate / n_shards with the shard's own accumulator).
 
     Returns (rows_T (16, cap) f32 packed columns, valid lanes first;
-    n_valid (host int); new res_counter; dropped (host int); props
-    (cap, K) — the gathered per-(reservoir, mode) injection-table rows, so
-    the caller can reuse trailing columns of an extended table)."""
+    n_valid (host int); new res_counter; dropped (host int))."""
     if params.res_gen not in RES_GENS:
         raise ValueError(f"unknown reservoir_gen {params.res_gen!r}")
     R, M_tab = rtab.enter_alias.shape[:2]
@@ -384,7 +382,7 @@ def sample_injections(
         inj_pos = _facet_positions(geo, inj_res, gen, cap, dev)
 
     T_res = geo.res_temperature[inj_res]
-    props = rtab.inj_props[inj_res, inj_mode.long()]  # (cap,K)
+    props = rtab.inj_props[inj_res, inj_mode.long()]  # (cap, 5)
     inj_omega = props[:, 0]
     rows = torch.empty((N_COLS, cap), dtype=torch.float32, device=dev)
     rows[C_POS] = inj_pos.T
@@ -399,7 +397,7 @@ def sample_injections(
     rows[C_REM] = inj_dtin / dt
     rows[C_ALIVE] = 1.0
     rows[C_SV] = 0.0
-    return rows, n_valid, new_counter, dropped, props
+    return rows, n_valid, new_counter, dropped
 
 
 def inject(state, geo: DeviceGeometry, rtab: ReservoirTables, params: SimParams, shard: int = 0):
@@ -422,7 +420,7 @@ def inject(state, geo: DeviceGeometry, rtab: ReservoirTables, params: SimParams,
     lane = torch.arange(cap, dtype=torch.int32, device=pool.device)
     if rtab.n_reservoirs == 0:
         return torch.full((cap,), N, dtype=torch.int32, device=pool.device), 0
-    rows, n_valid, new_counter, dropped, _ = sample_injections(
+    rows, n_valid, new_counter, dropped = sample_injections(
         state.res_counter, geo, rtab, params, state.gen, state.n_leaving, shard
     )
     # the valid rows come first: the lanes that fit are one slice

@@ -5,7 +5,7 @@ specular-mirror side pool (nanokappa_tpu/sim/state.py). The port keeps the
 same column indices as pool ROWS, in one of three layouts named by the
 state's `layout` tag:
   * "slim" (18 rows), the in-kernel specular-mirror path of eta = 0 walls
-    (sim/fused.py mirror_eligible, slim gate): rows 16-17 are the only two
+    (sim/fused.py build_route: mirror_eligible, slim gate): rows 16-17 are the only two
     mirror columns the step reads, row 16 = partner mode id (X_MODE) and
     row 17 = the lifetime slope b (X_TAUB); C_TAU holds the intercept a of
     tau(T) = a + b*T on the particle's temperature-grid bin;
@@ -58,14 +58,15 @@ class SimParams:
     res_gen: str = "constant"
     scat_model: str = "velocity"
     particle_density: float = 0.0
-    n_active_modes: int = 0
+    n_active_modes: int = 0  # the JAX package's field; the step normalises with
+    #   the material's own count (sim/binning.py normalize_bins)
     t_reference: float = 300.0
     evt_cap: int = 0  # event-buffer width (0 = autosize)
     n_shards: int = 1
     tau_dT: float = 0.25  # K of subvolume-temperature drift that triggers
     #   the cached-lifetime refresh on the plain layout
     step_impl: str = "auto"  # "auto" takes the fused v2 step wherever the
-    #   configuration is eligible (sim/fused.py v2_eligible), the general v1
+    #   configuration is eligible (sim/fused.py build_route), the general v1
     #   step elsewhere; "v1" / "v2" force one (nanokappa_tpu/sim/state.py:57)
 
 
@@ -288,10 +289,12 @@ def init_state(
     occupation: np.ndarray | None = None,
     empty_subvols=(),
     host_only: bool = False,
+    route=None,
 ) -> SimState:
     """The initial pool, built on the host exactly as the JAX package's
     init_state builds it (same NumPy draws in the same order), in the layout
-    the step runs (sim/fused.py pool_layout): on "slim" with the mirror
+    of the step's route (sim/fused.py build_route, built here when not
+    given): on "slim" with the mirror
     partner and slope-form lifetimes, on "full" with the whole mirror cache
     (the k model's degenerate split drawn), on "plain" with full lifetimes.
     Then moved to the geometry's device and given its first ray cast. A
@@ -304,10 +307,9 @@ def init_state(
     live particles spread evenly, so each segment gets an equal share of
     them and of dead-lane headroom)."""
     from nanokappa_torch.sim.boundary_tables import K_MODELS, combined_mirror_rows
-    from nanokappa_torch.sim.fused import pool_layout, require_slice
+    from nanokappa_torch.sim.fused import build_route
 
-    require_slice(geo, btab, params, mat)
-    layout = pool_layout(geo, btab, params, mat)
+    layout = (route or build_route(geo, btab, params, mat)).layout
     rng = np.random.default_rng(seed)
     n_cap = params.n_cap
     R = geo.n_reservoirs

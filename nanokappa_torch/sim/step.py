@@ -1,23 +1,26 @@
-"""The general (v1) step and the multi-step runner around either step.
+"""The general (v1) step, the end both steps share, and the multi-step
+runner around either step.
 
 Torch twin of nanokappa_tpu/sim/step.py `make_step` (:58, the v1 step),
 `build_step` (:269) and `make_v2_block_runner` (:347): n_outer blocks of
 n_inner steps, a lifetime refresh gated per block, one ledger reset per
 block, and the pool defragmented (kernel B) whenever the coming
-sub-block's appends could reach the capacity. `build_step` takes the fused
-v2 step (sim/fused.py make_step_v2) wherever `v2_eligible`, the v1 step
-elsewhere; both run in the same runner. The JAX package's `lax.cond`s
-become host `if`s: the tail is a host integer, so the compaction test reads
-nothing from the device; the lifetime gate reads one flag per block and
-each compaction one tail count.
+sub-block's appends could reach the capacity. Which step runs, on which
+pool layout and with which event window, is the configuration's route
+(sim/fused.py build_route), decided once a build: the fused v2 step
+(sim/fused.py make_step_v2) or the v1 step, both in the same runner and
+both ending in `postlude`. The JAX package's `lax.cond`s become host `if`s:
+the tail is a host integer, so the compaction test reads nothing from the
+device; the lifetime gate reads one flag per block and each compaction one
+tail count.
 
 The v1 step (reference classes/Population.py:1724-1769 run_timestep):
   1. reservoir injections appended at the pool tail (sim/reservoir.py
      inject),
-  2. the drift + boundary cascade (sim/cascade.py run_cascade: kernel C
-     compacts the events, kernel D merges them back),
-  3. subvolume binning and the temperature refresh (sim/binning.py
-     bin_all),
+  2. the drift + boundary cascade (sim/cascade.py cascade_tallies: kernel
+     C compacts the events, kernel D merges them back),
+  3. subvolume binning (sim/binning.py bin_sums) and the postlude's
+     temperature refresh,
   4. RTA scattering toward the particle temperatures of the new profile
      (nearest, linear on slices, or the radial RBF), with cached lifetimes.
 It runs on the plain 16-row pool and has no deferred RTA (no finalize).
@@ -36,9 +39,7 @@ from nanokappa_torch.sim.binning import (
     particle_energies, subvol_id,
 )
 from nanokappa_torch.sim.cascade import cascade_tallies, settle_cascade
-from nanokappa_torch.sim.fused import (
-    event_window, make_step_v2, refresh_tau_T, require_slice, v2_eligible,
-)
+from nanokappa_torch.sim.fused import Route, build_route, make_step_v2, refresh_tau_T
 from nanokappa_torch.sim.reservoir import inject
 from nanokappa_torch.sim.scatter import rta_scatter
 from nanokappa_torch.sim.state import (
@@ -68,16 +69,59 @@ def stack_outputs(outs: list[StepOutputs]) -> StepOutputs:
     )
 
 
-def make_step(geo, mat, btab, rtab, params: SimParams, comm=None):
+def postlude(state: SimState, geo, mat, params: SimParams, comm, sums, ledger, lost, frozen,
+             total_energy=None):
+    """The end of either step: the shard all-reduce (with `comm`: ONE
+    float64 all-reduce of the raw tallies, before the normalisation), the
+    ledger settle (sim/cascade.py settle_cascade), the normalisation
+    (sim/binning.py normalize_bins), the T(E) inversion, the state's
+    temperatures and step count, and the step's StepOutputs. `sums` are the
+    raw (SV, 5) subvolume sums, `ledger` the (R8, 5) reservoir ledger,
+    `lost` the (3,) int32 losses with the capacity drops in [0], `frozen`
+    the int32 frozen count. `total_energy` is the v1 step's own (its
+    particles' energies, summed over the shards with the tallies); None
+    takes the sum of the binned energies. Returns (state, StepOutputs)."""
+    if comm is not None:
+        # the raw sums of every shard, before the normalisation
+        if total_energy is None:
+            sums, ledger, lost, frozen = comm.reduce_sums(sums, ledger, lost, frozen)
+        else:
+            sums, total_energy, ledger, lost, frozen = comm.reduce_sums(
+                sums, total_energy, ledger, lost, frozen
+            )
+    settle_cascade(state, geo.n_reservoirs, ledger, lost, frozen)
+    e_dev_sv, phi, np_sv = normalize_bins(geo, mat, sums, params.energy_normal, params.particle_density)
+    phi = phi * EVPSA2_IN_WM2
+    E_sv = e_dev_sv + lookup_E_of_T(mat, state.T_sv)
+    T_new = lookup_T_of_E(mat, E_sv)
+    state.T_sv = T_new
+    state.Np_sv = np_sv
+    state.step += 1
+    return state, StepOutputs(
+        T_sv=T_new,
+        E_sv=E_sv,
+        phi_sv=phi,
+        Np_sv=np_sv,
+        N_p=np_sv.sum(),
+        total_energy=sums[:, 0].sum() if total_energy is None else total_energy,
+        res_energy_balance=state.res_energy_balance,
+        res_heat_flux=state.res_heat_flux,
+        n_leaving=state.n_leaving,
+        lost=state.lost.sum(),
+        lost_split=state.lost,
+        frozen=state.frozen,
+    )
+
+
+def make_step(geo, mat, btab, rtab, params: SimParams, comm=None, route: Route | None = None):
     """step(state) -> (state, StepOutputs), advancing `state` in place: the
-    fused v2 step where the configuration is eligible (sim/fused.py
-    v2_eligible), else the v1 step. With `comm` (parallel/sharding.py
+    step the configuration's route takes (build_route when not given), the
+    fused v2 step or the v1 step. With `comm` (parallel/sharding.py
     ShardComm) the state is one shard of the pool, and the step's sums are
     added up over the shards in one all-reduce before they are normalised."""
-    if v2_eligible(geo, params):
-        return make_step_v2(geo, mat, btab, rtab, params, comm)
-    require_slice(geo, btab, params, mat)
-    R = geo.n_reservoirs
+    route = route or build_route(geo, btab, params, mat)
+    if route.step == "v2":
+        return make_step_v2(geo, mat, btab, rtab, params, comm, route)
     shard = 0 if comm is None else comm.rank
 
     def step(state: SimState):
@@ -96,51 +140,19 @@ def make_step(geo, mat, btab, rtab, params: SimParams, comm=None):
         energies = particle_energies(
             pool[C_OMEGA], pool[C_DEV], alive, state.T_sv[sv.long()], params.t_reference,
         )
-        sums = bin_sums(geo, energies, pool[C_VEL].T, sv, alive)
-        total_energy = energies.sum()
-        if comm is not None:
-            # the raw sums of every shard, before the normalisation
-            lost = torch.stack([lost[0] + lost_inj, lost[1], lost[2]])
-            lost_inj = 0
-            sums, total_energy, ledger, lost, frozen = comm.reduce_sums(
-                sums, total_energy, ledger, lost, frozen
-            )
-        settle_cascade(state, R, ledger, lost, frozen)
-        e_dev_sv, phi, np_sv = normalize_bins(
-            geo, mat, sums, params.energy_normal, params.particle_density,
+        state, out = postlude(
+            state, geo, mat, params, comm, bin_sums(geo, energies, pool[C_VEL].T, sv, alive), ledger,
+            torch.stack([lost[0] + lost_inj, lost[1], lost[2]]), frozen, total_energy=energies.sum(),
         )
-        phi = phi * EVPSA2_IN_WM2
-        E_sv = e_dev_sv + lookup_E_of_T(mat, state.T_sv)
-        T_new = lookup_T_of_E(mat, E_sv)
 
         # 4. RTA scattering toward the particle temperatures of the new
         # profile, with the cached lifetimes
-        T_p = interp_T_particles(geo, T_new, pos, sv, params.temp_interp)
+        T_p = interp_T_particles(geo, out.T_sv, pos, sv, params.temp_interp)
         pool[C_DEV] = rta_scatter(
             mat, pool[C_DEV], state.mode, pool[C_OMEGA], T_p, alive,
             params.dt, params.t_reference, tau=pool[C_TAU],
         )
         pool[C_SV] = as_f32(sv)
-
-        if lost_inj:  # capacity drops (rare: a host-to-device copy)
-            state.lost = state.lost + torch.tensor([lost_inj, 0, 0], dtype=torch.int32).to(pool.device)
-        state.T_sv = T_new
-        state.Np_sv = np_sv
-        state.step += 1
-        out = StepOutputs(
-            T_sv=T_new,
-            E_sv=E_sv,
-            phi_sv=phi,
-            Np_sv=np_sv,
-            N_p=np_sv.sum(),
-            total_energy=total_energy,
-            res_energy_balance=state.res_energy_balance,
-            res_heat_flux=state.res_heat_flux,
-            n_leaving=state.n_leaving,
-            lost=state.lost.sum(),
-            lost_split=state.lost,
-            frozen=state.frozen,
-        )
         return state, out
 
     return step
@@ -150,12 +162,14 @@ def build_step(geo, mat, btab, rtab, params: SimParams, n_inner: int = 1, n_oute
     """run(state) -> (state, outputs): advances n_outer blocks of n_inner
     steps IN PLACE (the returned state is the one passed in). outputs is the
     last step's StepOutputs when n_outer == 1, else one stacked row per
-    block. The step is the fused v2 one where v2_eligible, else v1."""
-    step = make_step(geo, mat, btab, rtab, params)
-    return make_v2_block_runner(geo, mat, btab, params, step, n_inner, n_outer)
+    block. The step is the one the configuration's route takes."""
+    route = build_route(geo, btab, params, mat)
+    step = make_step(geo, mat, btab, rtab, params, route=route)
+    return make_v2_block_runner(geo, mat, btab, params, step, n_inner, n_outer, route)
 
 
-def make_v2_block_runner(geo, mat, btab, params: SimParams, step, n_inner: int, n_outer: int):
+def make_v2_block_runner(geo, mat, btab, params: SimParams, step, n_inner: int, n_outer: int,
+                         route: Route):
     # Tail-room invariant: each v2 step appends up to EVT_CAP + inj_cap rows
     # at the tail, each v1 step inj_cap (its event rows merge in place), and
     # only compaction reclaims dead lanes. Sub-blocks of m steps with m
@@ -163,8 +177,8 @@ def make_v2_block_runner(geo, mat, btab, params: SimParams, step, n_inner: int, 
     # event window makes m smaller than the film's).
     N = params.n_cap // params.n_shards  # one shard's pool
     per_step = params.inj_cap
-    if v2_eligible(geo, params):
-        per_step += event_window(geo, mat, btab, params)
+    if route.step == "v2":
+        per_step += route.evt_cap
     m = max(1, min(n_inner, (N // 5) // max(1, per_step)))
     while n_inner % m:  # largest divisor of n_inner <= the safe bound
         m -= 1

@@ -308,7 +308,7 @@ def bench_kernel_a(cs, device, rows, splits):
     from nanokappa_torch.material import synthetic_material
     from nanokappa_torch.ops.megastep import mega_config
     from nanokappa_torch.sim.boundary_tables import slim_mirror_axis
-    from nanokappa_torch.sim.fused import event_window
+    from nanokappa_torch.sim.fused import build_route
     from nanokappa_torch.sim.state import C_ALIVE, C_CF, STALE, init_state
     from nanokappa_torch.sim.step import build_step
 
@@ -321,7 +321,7 @@ def bench_kernel_a(cs, device, rows, splits):
         params = dataclasses.replace(params, **prm)
         st = init_state(mat, dom, geo, params, n_p, btab, temp_dist="linear", seed=cs.SEED + 1)
         build_step(geo, tabs, btab, rtab, params, n_inner=10)(st)
-        return dom, geo, btab, params, st, event_window(geo, tabs, btab, params)
+        return dom, geo, btab, params, st, build_route(geo, btab, params, tabs).evt_cap
 
     def n_fresh(pool):
         return int(((pool[C_CF].view(torch.int32) == STALE) & (pool[C_ALIVE] > 0.5)).sum())

@@ -182,7 +182,7 @@ def test_pooled_injection_counts_match_jax(pair):
         jrows, jn, jcounter, jdrop, _ = j_sample(
             jstate, j.geo, j.tabs, j.rtab, j.params, jax.random.PRNGKey(step)
         )
-        rows, n, counter, drop, _ = sample_injections(counter, t.geo, t.rtab, t.params, gen)
+        rows, n, counter, drop = sample_injections(counter, t.geo, t.rtab, t.params, gen)
         assert n == int(jn) > 0 and drop == int(jdrop)
         np.testing.assert_array_equal(counter, np.asarray(jcounter))
         jf = np.asarray(jrows)[: int(jn), C_ONF].view(np.int32)
@@ -207,7 +207,7 @@ def test_pooled_injection_modes_and_rows(pair):
     axis, plane = np_(t.geo.box_axis), np_(t.geo.box_plane)
     modes = {int(f): [] for f in res_facet}
     for _ in range(150):
-        rows, n, counter, _, _ = sample_injections(counter, t.geo, t.rtab, t.params, gen)
+        rows, n, counter, _ = sample_injections(counter, t.geo, t.rtab, t.params, gen)
         r = rows[:, :n]
         onf = np_(r[C_ONF]).view(np.int32)
         for k, f in enumerate(res_facet):

@@ -27,13 +27,13 @@ def test_corrugated_wire_step_matches_jax_v1():
     from nanokappa_tpu.sim.step import make_step
     from nanokappa_torch.convert import state_from_jax
     from nanokappa_torch.ops.megastep import mega_config
-    from nanokappa_torch.sim.fused import dkern_active, event_window, v2_eligible
+    from nanokappa_torch.sim.fused import build_route
     from nanokappa_torch.sim.step import build_step
 
     j, t = build_pair(CORRUGATED, mesh=(6, 6, 6), res_gen="constant", step_impl="v1", scat_model="k")
-    assert t.btab.n_rows == 40 and v2_eligible(t.geo, t.params)
-    assert dkern_active(t.geo, t.btab, t.params, t.tabs)
-    cfg = mega_config(t.geo, t.tabs, t.btab, t.params, event_window(t.geo, t.tabs, t.btab, t.params))
+    route = build_route(t.geo, t.btab, t.params, t.tabs)
+    assert t.btab.n_rows == 40 and route.step == "v2" and route.dkern
+    cfg = mega_config(t.geo, t.tabs, t.btab, t.params, route.evt_cap)
     assert cfg.cmask_w == 2 and cfg.tris.shape[0] == 120
     n_steps, skip = 16, 4
     run = build_step(t.geo, t.tabs, t.btab, t.rtab, t.params, n_inner=1, n_outer=n_steps)

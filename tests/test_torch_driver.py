@@ -108,7 +108,6 @@ def test_result_layouts_match_jax_driver(cli_run, matdir, tmp_path):
 def test_evt_cap_regrow(tmp_path, matdir):
     from nanokappa_torch.driver import Simulation
     from nanokappa_torch.io.config import read_args
-    from nanokappa_torch.sim.fused import event_window
 
     argv = [
         "--mat_folder", matdir, "--hdf_file", "kappa-m666.hdf5", "--poscar_file", "POSCAR",
@@ -122,10 +121,11 @@ def test_evt_cap_regrow(tmp_path, matdir):
     ]
     sim = Simulation(read_args(argv))
     sim.run(verbose=False)
-    old = event_window(sim.geo, sim.mtab, sim.btab, sim.params)
+    old = sim.route.evt_cap
     # a storm: more than 1% of the pool frozen in the last 100 steps
     sim._regrow_if_frozen(dict(frozen=sim.params.n_cap // 50))
     assert sim.params.evt_cap == min(2 * old, sim.params.n_cap // 4) and sim.evt_regrows == 1
+    assert sim.route.evt_cap == sim.params.evt_cap  # the route built anew
     assert sim._run_tail is None  # the tail runner is rebuilt on demand
     sim.args.iterations = [40]
     row = sim.run(verbose=False)  # 20 more steps on the rebuilt runner

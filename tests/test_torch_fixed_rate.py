@@ -44,7 +44,7 @@ def _draws():
     gen = __import__("torch").Generator().manual_seed(11)
     port, port_dt = [], []
     for _ in range(DRAWS):
-        rows, n_valid, counter, dropped, _ = sample_injections(
+        rows, n_valid, counter, dropped = sample_injections(
             t.state.res_counter, t.geo, t.rtab, t.params, gen
         )
         assert dropped == 0 and counter is t.state.res_counter  # no accumulator
@@ -110,7 +110,7 @@ def test_fixed_rate_clips_above_c_max():
     res_facet = np_(t.geo.res_facet)
     gen = torch.Generator().manual_seed(2)
     for _ in range(5):
-        rows, n_valid, _, dropped, _ = sample_injections(t.state.res_counter, t.geo, rtab, params, gen)
+        rows, n_valid, _, dropped = sample_injections(t.state.res_counter, t.geo, rtab, params, gen)
         v = np_(rows[:, :n_valid])
         c = _counts(v[C_MODE].view(np.int32), v[C_ONF].view(np.int32), res_facet, R, M)
         assert c.max() == 1 and np.all(c[np.floor(ep) >= 1] == 1)  # min(count, c_max)

@@ -59,7 +59,7 @@ def test_cli_kfilm_full_mirror(kcli):
     from nanokappa_torch.material import load_material
     from nanokappa_torch.geometry.device import build_device_geometry
     from nanokappa_torch.io.config import read_args
-    from nanokappa_torch.sim.fused import pool_layout
+    from nanokappa_torch.sim.fused import build_route
 
     folder, matdir, built = kcli
     args = read_args(["-ff", os.path.join(folder, "arguments.txt")])
@@ -68,7 +68,7 @@ def test_cli_kfilm_full_mirror(kcli):
     from nanokappa_torch.driver import Simulation
 
     sim = Simulation(args, material=mat)  # the same configuration, not run
-    assert pool_layout(sim.geo, built[0], sim.params, sim.mtab) == "full"
+    assert build_route(sim.geo, built[0], sim.params, sim.mtab).layout == "full"
     assert sim.state.layout == "full"
     for name in ("arguments.txt", "convergence.txt", "residue.txt", "particle_data.txt",
                  "subvolumes.txt", "specular_correspondences.txt"):

@@ -26,7 +26,7 @@ def test_full_step_matches_jax_v2(monkeypatch):
     j, t = build_pair(
         CLOSED_FILM, temp_dist="custom", subvol_temp=(299.0, 299.5, 300.0, 300.5, 301.0),
     )
-    assert t_fused.pool_layout(t.geo, t.btab, t.params, t.tabs) == "full"
+    assert t_fused.build_route(t.geo, t.btab, t.params, t.tabs).layout == "full"
     state = state_from_jax(jax_fields(j.state), "full", device="cpu", seed=3)
     run = build_step(t.geo, t.tabs, t.btab, t.rtab, t.params, n_inner=1, n_outer=4)
     _, out = run(state)

@@ -204,7 +204,7 @@ def _plain_pool(device, domain_kw, scat_model="velocity", ctx=None):
     from nanokappa_torch.ops.compact_pool import compact_pool_plain
     from nanokappa_torch.ops.megastep import mega_config
     from nanokappa_torch.sim.boundary_tables import build_boundary_tables
-    from nanokappa_torch.sim.fused import event_window
+    from nanokappa_torch.sim.fused import build_route
     from nanokappa_torch.sim.state import SimParams, init_state, particle_count
 
     mat = synthetic_material(mesh=(4, 4, 4))
@@ -225,7 +225,7 @@ def _plain_pool(device, domain_kw, scat_model="velocity", ctx=None):
     pool, _ = compact_pool_plain(state.pool)
     alive = torch.nonzero(pool[14] > 0.5).flatten()
     pool[10, alive[::20]] = torch.tensor(-2, dtype=torch.int32, device=device).view(torch.float32)
-    cfg = mega_config(geo, tabs, btab, params, event_window(geo, tabs, btab, params))
+    cfg = mega_config(geo, tabs, btab, params, build_route(geo, btab, params, tabs).evt_cap)
     return pool, state.T_sv, cfg
 
 
@@ -425,7 +425,7 @@ def test_cuda_megastep_precast_matches_plain(cuda, rta_on):
     pool with 5% of the lanes pre-cast."""
     from nanokappa_torch.ops.megastep import drift_megastep, drift_megastep_plain, mega_config
     from nanokappa_torch.ops.raycast import raycast
-    from nanokappa_torch.sim.fused import event_window
+    from nanokappa_torch.sim.fused import build_route
 
     mat, geo, btab, params, pool, T_sv = _cylinder(cuda)
     tabs = mat.device_tables(cuda)
@@ -434,7 +434,7 @@ def test_cuda_megastep_precast_matches_plain(cuda, rta_on):
     t, f = raycast(geo, pool[0:3, pre].T, pool[3:6, pre].T, pool[12, pre].contiguous().view(torch.int32))
     pool[11, pre] = -t - 1.0
     pool[10, pre] = f.view(torch.float32)
-    cfg = mega_config(geo, tabs, btab, params, event_window(geo, tabs, btab, params))
+    cfg = mega_config(geo, tabs, btab, params, build_route(geo, btab, params, tabs).evt_cap)
     assert not cfg.kernel_cast
     pk, pp = pool.clone(), pool.clone()
     rk, ik, ck, lk, bk = drift_megastep(pk, T_sv, rta_on, cfg)
@@ -575,7 +575,7 @@ def test_cuda_megastep_nearest_centre_256_near_ties(cuda, layout):
     from nanokappa_torch.geometry.subvolumes import grid_centers
     from nanokappa_torch.ops.megastep import SV_CENTER, mega_config
     from nanokappa_torch.sim.boundary_tables import slim_mirror_axis
-    from nanokappa_torch.sim.fused import event_window
+    from nanokappa_torch.sim.fused import build_route
 
     kw = FILM4 if layout == "slim" else dict(FILM4, bound_values=(302.0, 298.0, 2.0, 2.0))
     dom, geo, tabs, btab, params, pool, _ = _box_ctx(cuda, kw)
@@ -585,7 +585,7 @@ def test_cuda_megastep_nearest_centre_256_near_ties(cuda, layout):
     ggeo = build_device_geometry(gdom, cuda)
     flip = slim_mirror_axis(geo, btab, tabs) if layout == "slim" else None
     assert (flip is not None) == (layout == "slim") and pool.shape[0] == (18 if flip is not None else 16)
-    cfg = mega_config(ggeo, tabs, btab, params, event_window(geo, tabs, btab, params), flip)
+    cfg = mega_config(ggeo, tabs, btab, params, build_route(geo, btab, params, tabs).evt_cap, flip)
     assert cfg.sv_mode == SV_CENTER and cfg.sv == 256
     # half the alive lanes onto the bisector plane of a random pair of
     # x-neighbouring centres, jittered inside the plane
@@ -617,13 +617,13 @@ def test_cuda_megastep_linear_T_extrapolates(cuda, layout):
 
     from nanokappa_torch.ops.megastep import SV_LINEAR, mega_config
     from nanokappa_torch.sim.boundary_tables import slim_mirror_axis
-    from nanokappa_torch.sim.fused import event_window
+    from nanokappa_torch.sim.fused import build_route
 
     kw = FILM4 if layout == "slim" else dict(FILM4, bound_values=(302.0, 298.0, 2.0, 2.0))
     dom, geo, tabs, btab, params, pool, T_sv = _box_ctx(cuda, kw)
     params = dataclasses.replace(params, temp_interp="linear")
     flip = slim_mirror_axis(geo, btab, tabs) if layout == "slim" else None
-    cfg = mega_config(geo, tabs, btab, params, event_window(geo, tabs, btab, params), flip)
+    cfg = mega_config(geo, tabs, btab, params, build_route(geo, btab, params, tabs).evt_cap, flip)
     assert cfg.sv_mode == SV_LINEAR
     rng = np.random.default_rng(29)
     alive = torch.nonzero(pool[14] > 0.5).flatten().cpu().numpy()
@@ -708,7 +708,7 @@ def test_cuda_star_v1_step_matches_cpu(cuda, monkeypatch):
     from nanokappa_torch.material import synthetic_material
     from nanokappa_torch.ops import compact, scatter_rows
     from nanokappa_torch.sim.boundary_tables import build_boundary_tables
-    from nanokappa_torch.sim.fused import v2_eligible
+    from nanokappa_torch.sim.fused import build_route
     from nanokappa_torch.sim.reservoir import autosize_c_max, build_reservoir_tables
     from nanokappa_torch.sim.state import SimParams, init_state, particle_count
     from nanokappa_torch.sim.step import build_step
@@ -726,7 +726,7 @@ def test_cuda_star_v1_step_matches_cpu(cuda, monkeypatch):
             res_gen="constant", particle_density=rho, n_active_modes=mat.n_active_modes, t_reference=300.0,
         )
         geo = build_device_geometry(dom, d)
-        assert not v2_eligible(geo, params)
+        assert build_route(geo, None, params, None).step == "v1"
         btab = build_boundary_tables(mat, dom, device=d)
         state = init_state(mat, dom, geo, params, n_p, btab, temp_dist="linear", seed=4)
         n_c, n_d = compact.launches, scatter_rows.launches
@@ -748,7 +748,7 @@ def _instantiation(name, cuda, monkeypatch):
     from nanokappa_torch.ops.raycast import raycast
     from nanokappa_torch.sim import fused
     from nanokappa_torch.sim.boundary_tables import slim_mirror_axis
-    from nanokappa_torch.sim.fused import event_window
+    from nanokappa_torch.sim.fused import build_route
 
     if name == "box/slim/slice":
         return _film(cuda)
@@ -768,20 +768,20 @@ def _instantiation(name, cuda, monkeypatch):
         t, f = raycast(geo, pool[0:3, pre].T, pool[3:6, pre].T, pool[12, pre].contiguous().view(torch.int32))
         pool[11, pre] = -t - 1.0
         pool[10, pre] = f.view(torch.float32)
-        return pool, T_sv, mega_config(geo, tabs, btab, params, event_window(geo, tabs, btab, params))
+        return pool, T_sv, mega_config(geo, tabs, btab, params, build_route(geo, btab, params, tabs).evt_cap)
     kw = FILM4 if "slim" in name else dict(FILM4, bound_values=(302.0, 298.0, 2.0, 2.0))
     dom, geo, tabs, btab, params, pool, T_sv = _box_ctx(cuda, kw)
     flip = slim_mirror_axis(geo, btab, tabs) if "slim" in name else None
     if name.endswith("linear"):
         params = dataclasses.replace(params, temp_interp="linear")
-        return pool, T_sv, mega_config(geo, tabs, btab, params, event_window(geo, tabs, btab, params), flip)
+        return pool, T_sv, mega_config(geo, tabs, btab, params, build_route(geo, btab, params, tabs).evt_cap, flip)
     c = grid_centers(dom.mesh, np.array([16, 4, 4]))
     gdom = dataclasses.replace(dom, subvol_type="grid", subvol_center=c,
                                subvol_volume=np.full(len(c), dom.mesh.volume / len(c)))
     T_sv = torch.as_tensor(302.0 - 4.0 * (c[:, 0] - c[:, 0].min()) / np.ptp(c[:, 0]),
                            dtype=torch.float32, device=cuda)
     cfg = mega_config(build_device_geometry(gdom, cuda), tabs, btab, params,
-                      event_window(geo, tabs, btab, params), flip)
+                      build_route(geo, btab, params, tabs).evt_cap, flip)
     return pool, T_sv, cfg
 
 

@@ -14,11 +14,11 @@ package.
     narrow machinery that splits them): from one initial state, 4 steps of
     the port's fused step against the JAX v1 step, T_sv within 0.05 K, the
     populations within 30, nothing lost; the port counts swaps.
-  * `require_slice` admits a k-model configuration on the mirror path, on
-    tests/test_kmodel_mirror.py's crafted full-coverage involution table,
-    and `pool_layout` puts it on the full 24-row mirror layout (the split
-    drawn at cache fill; the test keeps the name it had while the port
-    refused this configuration).
+  * The route (sim/fused.py build_route) admits a k-model configuration
+    on the mirror path, on tests/test_kmodel_mirror.py's crafted
+    full-coverage involution table, and puts it on the full 24-row mirror
+    layout with the split drawn at cache fill (the test keeps the name it
+    had while the port refused this configuration).
 """
 
 import dataclasses
@@ -95,14 +95,15 @@ def test_kmodel_film_matches_jax_v1(kfilm):
     from nanokappa_tpu.sim.state import SimParams as JParams, SimState as JState
     from nanokappa_tpu.sim.step import make_step
     from nanokappa_torch.convert import state_to_jax
-    from nanokappa_torch.sim.fused import dkern_active, mirror_eligible, require_slice
+    from nanokappa_torch.sim.fused import build_route, dkern_active, mirror_eligible
     from nanokappa_torch.sim.state import init_state
     from nanokappa_torch.sim.step import build_step
 
     j, t = kfilm
     assert not mirror_eligible(t.geo, t.btab, t.params, t.tabs)
     assert dkern_active(t.geo, t.btab, t.params, t.tabs)
-    require_slice(t.geo, t.btab, t.params, t.tabs)  # admitted: no raise
+    route = build_route(t.geo, t.btab, t.params, t.tabs)  # admitted: no raise
+    assert (route.step, route.layout, route.dkern, route.k_split) == ("v2", "plain", True, False)
     state = init_state(t.mat, t.dom, t.geo, t.params, t.n_p, t.btab, temp_dist="linear", seed=5)
     d = state_to_jax(state)
     dead = np.nonzero(np_(state.pool[14]) < 0.5)[0].astype(np.int32)
@@ -123,7 +124,7 @@ def test_kmodel_film_matches_jax_v1(kfilm):
 
 
 def test_require_slice_refuses_the_kmodel_mirror(kfilm):
-    from nanokappa_torch.sim.fused import kmodel_degen, mirror_eligible, pool_layout, require_slice
+    from nanokappa_torch.sim.fused import build_route, mirror_eligible
 
     _, t = kfilm
     M = t.mat.n_modes
@@ -134,6 +135,5 @@ def test_require_slice_refuses_the_kmodel_mirror(kfilm):
     )
     object.__setattr__(crafted, "_host", {**t.btab._host, "specularity": spec, "corr": ident})
     assert mirror_eligible(t.geo, crafted, t.params, t.tabs)
-    require_slice(t.geo, crafted, t.params, t.tabs)  # admitted: no raise
-    assert kmodel_degen(crafted, t.params)
-    assert pool_layout(t.geo, crafted, t.params, t.tabs) == "full"
+    route = build_route(t.geo, crafted, t.params, t.tabs)  # admitted: no raise
+    assert route.k_split and route.layout == "full"

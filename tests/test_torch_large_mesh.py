@@ -43,7 +43,7 @@ def test_large_mesh_step_matches_jax_v1(monkeypatch):
     from nanokappa_torch.material import synthetic_material
     from nanokappa_torch.ops.raycast_large import large_eligible
     from nanokappa_torch.sim.boundary_tables import build_boundary_tables
-    from nanokappa_torch.sim.fused import TRI_KERNEL_MAX, kernel_cast_ok, mirror_eligible, require_slice
+    from nanokappa_torch.sim.fused import TRI_KERNEL_MAX, build_route, kernel_cast_ok, mirror_eligible
     from nanokappa_torch.sim.reservoir import build_reservoir_tables
     from nanokappa_torch.sim.state import SimParams, init_state, particle_count
     from nanokappa_torch.sim.step import build_step
@@ -63,7 +63,7 @@ def test_large_mesh_step_matches_jax_v1(monkeypatch):
     params, jparams = SimParams(**common), JParams(step_impl="v1", **common)
     assert geo.tri_origin.shape[0] > TRI_KERNEL_MAX and not kernel_cast_ok(geo) and large_eligible(geo)
     assert btab.n_rows > 32 and not mirror_eligible(geo, btab, params, tabs)
-    require_slice(geo, btab, params, tabs)  # admitted: no raise
+    assert build_route(geo, btab, params, tabs).kernel_cast is False  # admitted: no raise
 
     state = init_state(mat, dom, geo, params, n_p, btab, temp_dist="linear", seed=3)
     d = state_to_jax(state)

@@ -67,7 +67,7 @@ def test_twin_reflects_specularly_exactly_where_a_partner_exists():
 
     from nanokappa_torch.geometry.domain import BC
     from nanokappa_torch.ops.megastep import FT_ETA, drift_megastep_plain, mega_config
-    from nanokappa_torch.sim.fused import dkern_active, dkern_facet_tables, v2_eligible
+    from nanokappa_torch.sim.fused import build_route, dkern_facet_tables
     from nanokappa_torch.sim.state import C_MODE, SimParams, init_state, particle_count
 
     w = _wire()
@@ -77,7 +77,8 @@ def test_twin_reflects_specularly_exactly_where_a_partner_exists():
         particle_density=rho, n_active_modes=w.mat.n_active_modes, t_reference=300.0,
         scat_model="k",
     )
-    assert v2_eligible(w.geo, params) and dkern_active(w.geo, w.btab, params, w.tabs)
+    route = build_route(w.geo, w.btab, params, w.tabs)
+    assert route.step == "v2" and route.dkern
     state = init_state(w.mat, w.dom, w.geo, params, n_p, w.btab, temp_dist="linear", seed=3)
     assert state.layout == "plain"
     cfg = mega_config(w.geo, w.tabs, w.btab, params, 4096)

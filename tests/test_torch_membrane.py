@@ -310,7 +310,7 @@ def test_membrane_watertight(stl_path, mats, step):
     """tests/test_interfaces.py:176 on the port's v1 and v2 steps."""
     from nanokappa_torch.geometry.device import build_device_geometry
     from nanokappa_torch.sim.boundary_tables import build_boundary_tables
-    from nanokappa_torch.sim.fused import v2_eligible
+    from nanokappa_torch.sim.fused import build_route
     from nanokappa_torch.sim.reservoir import build_reservoir_tables
     from nanokappa_torch.sim.state import SimParams, init_state, particle_count, round_pool_cap
     from nanokappa_torch.sim.step import build_step
@@ -324,7 +324,7 @@ def test_membrane_watertight(stl_path, mats, step):
     geo = build_device_geometry(td, device="cpu")
     btab = build_boundary_tables(mat, td, device="cpu")
     rtab = build_reservoir_tables(mat, td, params.dt, rho, device="cpu")
-    assert v2_eligible(geo, params) == (step == "v2")
+    assert build_route(geo, btab, params, mat.device_tables("cpu")).step == step
     state = init_state(mat, td, geo, params, n_p, btab, temp_dist="mean", seed=7)
     run = build_step(geo, mat.device_tables("cpu"), btab, rtab, params, n_inner=5)
     state, out0 = run(state)

@@ -126,7 +126,7 @@ def test_membrane_transport_matches_jax_v1(stl_path, mats):
     from nanokappa_torch.convert import state_to_jax
     from nanokappa_torch.geometry.device import build_device_geometry
     from nanokappa_torch.sim.boundary_tables import build_boundary_tables
-    from nanokappa_torch.sim.fused import dkern_active, v2_eligible
+    from nanokappa_torch.sim.fused import build_route
     from nanokappa_torch.sim.reservoir import build_reservoir_tables
     from nanokappa_torch.sim.state import SimParams, init_state, particle_count, round_pool_cap
     from nanokappa_torch.sim.step import build_step
@@ -142,7 +142,8 @@ def test_membrane_transport_matches_jax_v1(stl_path, mats):
     btab = build_boundary_tables(mat, td, device="cpu")
     rtab = build_reservoir_tables(mat, td, 1.0, rho, device="cpu")
     tabs = mat.device_tables("cpu")
-    assert v2_eligible(geo, params) and dkern_active(geo, btab, params, tabs)
+    route = build_route(geo, btab, params, tabs)
+    assert route.step == "v2" and route.dkern
     state = init_state(mat, td, geo, params, n_p, btab, temp_dist="linear", seed=3)
     d = state_to_jax(state)
     dead = np.nonzero(np_(state.pool[14]) < 0.5)[0].astype(np.int32)

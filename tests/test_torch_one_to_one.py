@@ -35,7 +35,7 @@ def test_one_to_one_totals_are_n_leaving_clipped_at_per():
     gen = torch.Generator().manual_seed(5)
     for leaving in ([0, 0], [3, 0], [17, 250], [per, per], [per + 40, 7], [1000, per + 1]):
         nl = torch.tensor(leaving, dtype=torch.int32)
-        rows, n_valid, counter, dropped, _ = sample_injections(
+        rows, n_valid, counter, dropped = sample_injections(
             t.state.res_counter, t.geo, t.rtab, t.params, gen, nl
         )
         kept = np.minimum(leaving, per)
@@ -67,7 +67,7 @@ def test_one_to_one_modes_match_jax_and_enter_prob():
     nl = torch.tensor([per, per], dtype=torch.int32)
     hp = np.zeros((R, M), np.int64)
     for _ in range(draws):
-        rows, n_valid, _, _, _ = sample_injections(t.state.res_counter, t.geo, t.rtab, t.params, gen, nl)
+        rows, n_valid, _, _ = sample_injections(t.state.res_counter, t.geo, t.rtab, t.params, gen, nl)
         r, m = _per_reservoir(rows, n_valid, res_facet)
         np.add.at(hp, (r, m), 1)
     js = dataclasses.replace(j.state, n_leaving=jnp.asarray([per, per], jnp.int32))

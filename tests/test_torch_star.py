@@ -149,16 +149,15 @@ def test_driver_regrows_the_v1_event_window(tmp_path, monkeypatch, capsys):
     compaction, logging the reason again (nanokappa_tpu/driver.py:301-340)."""
     from nanokappa_torch.driver import Simulation
     from nanokappa_torch.io.config import read_args
-    from nanokappa_torch.sim.fused import event_window
 
     patch_lloyd(monkeypatch, STAR_CENTERS, equal_volumes=True)
     sim = Simulation(read_args(star_argv(tmp_path)))
-    assert sim.v1_reason == RADIAL_REASON and sim.state.layout == "plain"
+    assert sim.route.v1_reason == RADIAL_REASON and sim.state.layout == "plain"
     assert sim._finalize(sim.state) is sim.state
-    cur = event_window(sim.geo, sim.mtab, sim.btab, sim.params)
+    cur = sim.route.evt_cap
     assert cur == max(sim.params.inj_cap, sim.params.n_cap // 16)
     sim._rebuild_step(evt_cap=2 * cur)
-    assert event_window(sim.geo, sim.mtab, sim.btab, sim.params) == 2 * cur
+    assert sim.route.evt_cap == 2 * cur
     assert capsys.readouterr().out.count(f"running the v1 step (no fused drift kernel): {RADIAL_REASON}") == 2
     sim.state, out = sim.run_steps(sim.state)
     assert int(out.lost[-1]) == 0 and sim.state.step == 100

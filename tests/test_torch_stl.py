@@ -65,13 +65,13 @@ def test_meshes_beyond_kernel_e_raise(n_side):
 
     import torch
 
-    from nanokappa_torch.sim.fused import require_slice, v2_fallback_reason
+    from nanokappa_torch.sim.fused import build_route, v2_fallback_reason
     from nanokappa_torch.sim.state import SimParams
 
     geo = SimpleNamespace(is_box=False, tri_origin=torch.zeros(4 * n_side, 3), n_reservoirs=2,
                           subvol_type="slice", n_subvols=5)
     params = SimParams(dt=1.0, n_cap=1024, inj_cap=8)
-    require_slice(geo, None, params, None)
-    assert v2_fallback_reason(geo, params) == (
+    route = build_route(geo, None, params, None)
+    assert route.step == "v1" and route.v1_reason == v2_fallback_reason(geo, params) == (
         "mesh has 65600 triangles > the large-mesh fused-step bound LARGE_TRI_MAX=65536"
     )

@@ -12,7 +12,7 @@ SMEM table walk).
     `check_branch_against_pallas`, run by tests/test_torch_subvol_kernel.py
     (8 centres) and tests/test_torch_subvol_walk.py (40 centres), one
     Pallas compile per file;
-  * `sim/fused.py:require_slice` admits grid and voronoi up to 256
+  * `sim/fused.py:build_route` admits grid and voronoi up to 256
     centres, linear T on slices and the k model off the mirror path, and
     names the ROADMAP item of every configuration it still refuses.
 
@@ -229,7 +229,7 @@ def _gate_geo(**kw):
     from types import SimpleNamespace
 
     g = dict(is_box=True, tri_origin=torch.zeros((12, 3)), subvol_type="voronoi", n_subvols=8,
-             n_reservoirs=2)
+             n_reservoirs=2, n_facets=0, volume=0.0)
     g.update(kw)
     return SimpleNamespace(**g)
 
@@ -256,18 +256,17 @@ def test_require_slice_names_the_item(geo_kw, params_kw, item):
     naming the ROADMAP item that ports them; those of item 11 (the v1 step,
     ported) are admitted and routed to the v1 step, those of item 5 (the
     reservoir schemes, ported: 0 here) admitted on the fused step."""
-    from nanokappa_torch.sim.fused import require_slice, v2_eligible
+    from nanokappa_torch.sim.fused import build_route
     from nanokappa_torch.sim.state import SimParams
 
     params = SimParams(dt=1.0, n_cap=4096, inj_cap=512, temp_interp="nearest", res_gen="pooled")
     params = dataclasses.replace(params, **params_kw)
     geo = _gate_geo(**geo_kw)
     if item in (0, 11):
-        require_slice(geo, None, params, None)
-        assert v2_eligible(geo, params) == (item == 0)
+        assert build_route(geo, None, params, None).step == ("v2" if item == 0 else "v1")
         return
     with pytest.raises(NotImplementedError, match=rf"item {item}\b"):
-        require_slice(geo, None, params, None)
+        build_route(geo, None, params, None)
 
 
 @pytest.mark.parametrize("geo_kw, params_kw", [
@@ -277,11 +276,11 @@ def test_require_slice_names_the_item(geo_kw, params_kw, item):
     ({}, dict(scat_model="k", res_gen="constant")),
 ], ids=["voronoi256", "grid256", "slice512_linear", "kmodel_off_mirror"])
 def test_require_slice_admits(geo_kw, params_kw):
-    from nanokappa_torch.sim.fused import require_slice
+    from nanokappa_torch.sim.fused import build_route
     from nanokappa_torch.sim.state import SimParams
 
     params = SimParams(dt=1.0, n_cap=4096, inj_cap=512, temp_interp="nearest", res_gen="pooled")
-    require_slice(_gate_geo(**geo_kw), None, dataclasses.replace(params, **params_kw), None)
+    assert build_route(_gate_geo(**geo_kw), None, dataclasses.replace(params, **params_kw), None).step == "v2"
 
 
 def test_convert_carries_centres_and_state(centre_pair):

@@ -1,8 +1,9 @@
 """The port's v1 step, module by module, against the JAX package on the CPU.
 
-  * `run_cascade` (the stale lanes' cast, the full-width drift, the event
-    compaction through kernel C's twin, the narrow machinery, the merge
-    through kernel D's twin) against the JAX one from one converted state
+  * `run_cascade` (the JAX function's twin on the port, defined here: the
+    stale lanes' cast, the full-width drift, the event compaction through
+    kernel C's twin, the narrow machinery, the merge through kernel D's
+    twin, the tallies settled) against the JAX one from one converted state
     and one stale set, on a box with T and P facets only (absorption and
     periodic translation: no random draw decides anything): the pool's
     int rows and liveness equal, its float rows to float32 rounding
@@ -11,14 +12,17 @@
     JAX test's own atol 1e-2 K (the JAX package solves its system in
     float32), and against scipy's cubic RBFInterpolator within 1e-4 K (the
     port solves and evaluates in float64);
-  * `bin_all` against the JAX one, rtol 1e-5;
+  * `bin_all` (the JAX function's twin on the port, defined here: the v1
+    step's bin_sums and the steps' normalize_bins) against the JAX one,
+    rtol 1e-5;
   * `_raycast_broadcast` on a 300-triangle mesh, called directly: the
     facet equal, t to rtol 1e-5 (XLA's dot products round otherwise), and
     bit-equal to the one-chunk cast on rays aimed at vertices (the tie
     rule);
   * routing: radial, linear on voronoi, 513 slices, 257 centres and 8
-    reservoirs run the v1 step, with the JAX package's reason, and a step
-    builds; items 5, 10 and 12 still raise.
+    reservoirs run the v1 step (the route, sim/fused.py build_route), with
+    the JAX package's reason, and a step builds; items 5, 10 and 12 are
+    admitted.
 """
 
 import dataclasses
@@ -43,6 +47,23 @@ TP_BOX = dict(
 INT_COLS = [9, 10, 12, 15]  # mode, coll facet, on facet, subvolume
 
 
+def run_cascade(state, stale_idx, geo, mat, btab, params, gen):
+    """nanokappa_tpu/sim/cascade.py run_cascade on the port: the v1
+    step's drift + boundary cascade on the plain pool, IN PLACE, its
+    tallies settled into the state's ledgers."""
+    from nanokappa_torch.sim.cascade import cascade_tallies, settle_cascade
+
+    return settle_cascade(state, geo.n_reservoirs, *cascade_tallies(state, stale_idx, geo, mat, btab, params, gen))
+
+
+def bin_all(geo, mat, energies, vel, sv, alive, energy_normal, particle_density):
+    """nanokappa_tpu/sim/binning.py bin_all on the port: (E_dev_sv, phi_sv
+    in eV/ps/A^2, Np_sv) of the particles."""
+    from nanokappa_torch.sim.binning import bin_sums, normalize_bins
+
+    return normalize_bins(geo, mat, bin_sums(geo, energies, vel, sv, alive), energy_normal, particle_density)
+
+
 def test_run_cascade_matches_jax():
     import jax
     import jax.numpy as jnp
@@ -53,7 +74,6 @@ def test_run_cascade_matches_jax():
     from nanokappa_torch.convert import state_from_jax, state_to_jax
     from nanokappa_torch.geometry.domain import BC
     from nanokappa_torch.material.tables import bose_einstein
-    from nanokappa_torch.sim.cascade import run_cascade
     from nanokappa_torch.sim.state import C_CF, C_REM, STALE
 
     j, t = build_pair(TP_BOX, mesh=(4, 4, 4), n_p=3000, n_cap=4096, inj_cap=512,
@@ -140,7 +160,6 @@ def test_bin_all_matches_jax(normal):
     import jax.numpy as jnp
 
     from nanokappa_tpu.sim.binning import bin_all as j_bin_all
-    from nanokappa_torch.sim.binning import bin_all
 
     j, t = build_pair(mesh=(4, 4, 4))
     rng = np.random.default_rng(2)
@@ -205,7 +224,7 @@ def test_raycast_broadcast_300_triangles_matches_jax():
 
 def _gate_geo(**kw):
     g = dict(is_box=True, tri_origin=torch.zeros((12, 3)), subvol_type="voronoi", n_subvols=8,
-             n_reservoirs=2)
+             n_reservoirs=2, n_facets=0, volume=0.0)
     g.update(kw)
     return SimpleNamespace(**g)
 
@@ -222,7 +241,7 @@ def _gate_geo(**kw):
 def test_v1_routing_matches_jax(geo_kw, params_kw):
     from nanokappa_tpu.sim.fused import v2_fallback_reason as j_reason
     from nanokappa_tpu.sim.state import SimParams as JParams
-    from nanokappa_torch.sim.fused import pool_layout, v2_eligible, v2_fallback_reason
+    from nanokappa_torch.sim.fused import build_route, v2_fallback_reason
     from nanokappa_torch.sim.state import SimParams
     from nanokappa_torch.sim.step import build_step
 
@@ -232,21 +251,22 @@ def test_v1_routing_matches_jax(geo_kw, params_kw):
     geo = _gate_geo(**geo_kw)
     reason = v2_fallback_reason(geo, params)
     assert reason is not None and reason == j_reason(geo, jparams)
-    assert not v2_eligible(geo, params)
-    assert pool_layout(geo, None, params, None) == "plain"
+    route = build_route(geo, None, params, None)
+    assert (route.step, route.v1_reason, route.layout) == ("v1", reason, "plain")
     assert callable(build_step(geo, None, None, None, params, n_inner=10))
 
 
 def test_v2_admits_the_fused_configurations():
     """The fused step's envelope: nearest voronoi, linear slices, a box;
     "auto" takes it on the CPU too (where the JAX package falls back)."""
-    from nanokappa_torch.sim.fused import v2_eligible
+    from nanokappa_torch.sim.fused import build_route
     from nanokappa_torch.sim.state import SimParams
 
     params = SimParams(dt=1.0, n_cap=4096, inj_cap=512, temp_interp="nearest", res_gen="pooled")
-    assert v2_eligible(_gate_geo(), params)
-    assert v2_eligible(_gate_geo(subvol_type="slice", n_subvols=512), dataclasses.replace(params, temp_interp="linear"))
-    assert not v2_eligible(_gate_geo(), dataclasses.replace(params, n_cap=5000))  # no kernel tile
+    assert build_route(_gate_geo(), None, params, None).step == "v2"
+    assert build_route(_gate_geo(subvol_type="slice", n_subvols=512), None,
+                       dataclasses.replace(params, temp_interp="linear"), None).step == "v2"
+    assert build_route(_gate_geo(), None, dataclasses.replace(params, n_cap=5000), None).step == "v1"  # no kernel tile
 
 
 @pytest.mark.parametrize("params_kw, item, dkern", [
@@ -267,13 +287,14 @@ def test_items_5_10_12_still_raise(params_kw, item, dkern, monkeypatch):
     from nanokappa_torch.sim.state import SimParams
     from nanokappa_torch.sim.step import make_step
 
-    monkeypatch.setattr(fused, "dkern_active", lambda *a, **k: dkern)
+    monkeypatch.setattr(fused, "_dkern", lambda *a, **k: dkern)
     params = dataclasses.replace(
         SimParams(dt=1.0, n_cap=4096, inj_cap=512, temp_interp="nearest", res_gen="pooled"), **params_kw
     )
-    fused.require_slice(_gate_geo(), SimpleNamespace(n_rows=33), params, None)
-    if not fused.v2_eligible(_gate_geo(), params):
+    route = fused.build_route(_gate_geo(), SimpleNamespace(n_rows=33), params, None)
+    assert route.dkern == (dkern and route.step == "v2")
+    if route.step == "v1":
         assert callable(make_step(_gate_geo(), None, SimpleNamespace(n_rows=33), None, params))
     # 33 rows on the v1 step: no kernel A, nothing to refuse
-    fused.require_slice(_gate_geo(), SimpleNamespace(n_rows=33),
-                        dataclasses.replace(params, res_gen="pooled", n_shards=1, temp_interp="radial"), None)
+    assert fused.build_route(_gate_geo(), SimpleNamespace(n_rows=33), dataclasses.replace(
+        params, res_gen="pooled", n_shards=1, temp_interp="radial"), None).step == "v1"

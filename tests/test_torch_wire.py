@@ -36,8 +36,8 @@ def test_wire_gates_and_sizing_match_jax(wire):
         kernel_cast_ok as j_kc, mirror_eligible as j_me,
     )
     from nanokappa_torch.sim.fused import (
-        autosize_evt_cap, dkern_active, dkern_facet_tables, kernel_cast_ok,
-        mirror_eligible, pool_layout,
+        autosize_evt_cap, build_route, dkern_active, dkern_facet_tables, kernel_cast_ok,
+        mirror_eligible,
     )
 
     j, t = wire
@@ -46,7 +46,7 @@ def test_wire_gates_and_sizing_match_jax(wire):
     assert not mirror_eligible(t.geo, t.btab, t.params, t.tabs)
     assert j_dkern(j.geo, j.btab, j.params, j.tabs, j.params.n_cap) is not None
     assert dkern_active(t.geo, t.btab, t.params, t.tabs)
-    assert pool_layout(t.geo, t.btab, t.params, t.tabs) == "plain"
+    assert build_route(t.geo, t.btab, t.params, t.tabs).layout == "plain"
     jd, td = _dkern_facet_tables(j.geo, j.btab), dkern_facet_tables(t.geo, t.btab)
     for k in ("facet_eta", "facet_row", "facet_row_back", "two_sided"):
         np.testing.assert_array_equal(np.asarray(jd[k]), np.asarray(td[k]), err_msg=k)
@@ -107,7 +107,7 @@ def test_constant_injections_match_jax(wire):
         jrows, jn, jcounter, jdrop, _ = j_sample(
             jstate, j.geo, j.tabs, j.rtab, j.params, jax.random.PRNGKey(k)
         )
-        rows, n, counter, drop, _ = sample_injections(counter, t.geo, t.rtab, t.params, gen)
+        rows, n, counter, drop = sample_injections(counter, t.geo, t.rtab, t.params, gen)
         jstate = dataclasses.replace(jstate, res_counter=jcounter)
         assert (n, drop) == (int(jn), int(jdrop))
         np.testing.assert_array_equal(counter, np.asarray(jcounter))
@@ -133,7 +133,7 @@ def test_constant_positions_cover_the_caps_by_area(wire):
     gen = torch.Generator().manual_seed(9)
     pos, fac = [], []
     for _ in range(30):
-        rows, n, counter, _, _ = sample_injections(counter, t.geo, t.rtab, t.params, gen)
+        rows, n, counter, _ = sample_injections(counter, t.geo, t.rtab, t.params, gen)
         pos.append(np_(rows[C_POS, :n]).T)
         fac.append(np_(rows[C_ONF, :n]).view(np.int32))
     pos, fac = np.concatenate(pos).astype(np.float64), np.concatenate(fac)
@@ -183,7 +183,7 @@ def test_configs_outside_the_ported_paths_raise(wire, change, item, monkeypatch)
     import dataclasses
 
     from nanokappa_torch.sim import fused
-    from nanokappa_torch.sim.fused import require_slice, v2_eligible
+    from nanokappa_torch.sim.fused import build_route
 
     _, t = wire
     geo = dataclasses.replace(t.geo, **change.get("geo", {}))
@@ -191,11 +191,10 @@ def test_configs_outside_the_ported_paths_raise(wire, change, item, monkeypatch)
     if change.get("mirror"):
         monkeypatch.setattr(fused, "mirror_eligible", lambda *a, **k: True)
     if item in (0, 11):
-        require_slice(geo, t.btab, params, t.tabs)
-        assert v2_eligible(geo, params) == (item == 0)
+        assert build_route(geo, t.btab, params, t.tabs).step == ("v2" if item == 0 else "v1")
         return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
-        require_slice(geo, t.btab, params, t.tabs)
+        build_route(geo, t.btab, params, t.tabs)
 
 
 def test_builders_default_to_the_card(monkeypatch, wire):
